@@ -1,0 +1,379 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's MACE serving path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Run from the repository root (the script finds ``src/repro_torch`` next to
+itself).  Phases, none of them caught, so any failure exits nonzero:
+
+1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, all started together) and print ptxas's register report;
+2. hold each of the four kernels against its plain PyTorch version on the
+   card, at the shapes the 256-atom bucket of the paper's model gives it
+   (both interaction layers; receivers with a hub atom spanning several
+   tiles and fully masked padding tiles), and time both;
+3. start a full-width ``GraphServer`` (the paper's §5.2 widths, random
+   weights from a seed, buckets of 64 and 256 atoms, 2 workers) and serve
+   48 molecules of a skewed mix; every kernel's launch count over that run
+   must be above zero; then serve them once more under ``torch.profiler``
+   for the card's busy and idle share;
+4. serve a few of the same molecules with the same parameters on the CPU
+   (plain versions) and compare energies and forces;
+5. report: the card's name and power limit, a serving line, one JSON line
+   of kernel numbers, and last a JSON line with ``"ok": true``.
+
+Without a CUDA device it exits with code 2 before printing any result.
+"""
+from __future__ import annotations
+
+import json
+import random
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.configs.mace_cfm import CONFIG  # noqa: E402
+from repro_torch.core.mace import init_mace  # noqa: E402
+from repro_torch.data.blocking import block_edges  # noqa: E402
+from repro_torch.data.molecules import SyntheticCFMDataset  # noqa: E402
+from repro_torch.kernels import cuda_lib  # noqa: E402
+from repro_torch.kernels.channelwise_tp import kernel as tpk  # noqa: E402
+from repro_torch.kernels.symmetric_contraction import kernel as sck  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    GraphServer,
+    ServeConfig,
+    ServeEngine,
+    bucket_ladder,
+    select_bucket,
+)
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+KERNEL_TOL = 2e-5           # relative to the output's largest magnitude
+SERVE_RTOL = 1e-4           # GPU vs CPU, energies and forces
+SEED = 0
+CAPACITIES = (64, 256)
+EDGE_FACTOR = 48
+N_REQUESTS = 48
+
+KERNELS = {
+    "symcon_fwd": dict(kernel=sck.SYMCON_FWD, source="src/repro_torch/csrc/symmetric_contraction.cu",
+                       replaces="src/repro/kernels/symmetric_contraction/kernel.py:82"),
+    "symcon_bwd": dict(kernel=sck.SYMCON_BWD, source="src/repro_torch/csrc/symmetric_contraction.cu",
+                       replaces="src/repro/kernels/symmetric_contraction/kernel.py:166"),
+    "tp_scatter_fwd": dict(kernel=tpk.TP_SCATTER_FWD, source="src/repro_torch/csrc/channelwise_tp.cu",
+                           replaces="src/repro/kernels/channelwise_tp/kernel.py:58"),
+    "tp_gather_bwd": dict(kernel=tpk.TP_GATHER_BWD, source="src/repro_torch/csrc/channelwise_tp.cu",
+                          replaces="src/repro/kernels/channelwise_tp/kernel.py:106"),
+}
+
+
+def _time_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call, by CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bound_ms(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _compare(got, want):
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    err, scale = 0.0, 0.0
+    for g, w in zip(got, want):
+        err = max(err, float((g - w).abs().max()))
+        scale = max(scale, float(w.abs().max()))
+    ok = err <= KERNEL_TOL * max(1.0, scale)
+    return err, scale, ok
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version, at the main path's shapes
+# ---------------------------------------------------------------------------
+
+
+def _bucket_blocking(rng, bucket):
+    """Receivers of a 256-atom bucket: degrees like the dataset's plus one hub
+    atom of degree 300 (three tiles sharing a base); the rest of the static
+    tile count is padding tiles."""
+    n_atoms = bucket.max_nodes
+    deg = rng.integers(8, 40, n_atoms)
+    deg[5] = 300
+    receivers = np.repeat(np.arange(n_atoms), deg).astype(np.int32)
+    rng.shuffle(receivers)
+    E = bucket.max_edges
+    edge_mask = np.zeros(E, bool)
+    edge_mask[: receivers.size] = True
+    receivers = np.concatenate([receivers, np.zeros(E - receivers.size, np.int32)])
+    blk = block_edges(receivers, edge_mask, n_atoms, block_n=bucket.block_n,
+                      block_e=bucket.block_e, n_tiles=bucket.blocking_tiles)
+    assert (blk.tile_base == 0).sum() >= 3, "expected the hub to span tiles"
+    assert not blk.valid[-bucket.block_e:].any(), "expected padding tiles"
+    return blk
+
+
+def check_kernels(dev):
+    rng = np.random.default_rng(SEED)
+    bucket = bucket_ladder(CAPACITIES, edge_factor=EDGE_FACTOR)[-1]
+    blk = _bucket_blocking(rng, bucket)
+    T, bn, k = blk.n_atom_tiles, blk.block_n, CONFIG.channels
+    E_p = blk.perm.shape[0]
+    n_valid = int(blk.valid.sum())
+    local = torch.from_numpy(blk.local_rcv).to(dev)
+    valid = torch.from_numpy(blk.valid).to(dev)
+    rows_needed = np.unique(
+        (np.arange(E_p) // blk.epb * bn + blk.local_rcv)[blk.valid]).size
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    spec = CONFIG.symcon_spec()
+    N, d_in, d_out = bucket.max_nodes, spec.in_spec.dim, spec.out_spec.dim
+    P = sck.p_total_of(spec)
+    groups = sck._group_entries(spec, sck.build_symcon_tables(spec))[0]
+    fwd_ops = sum(n * (nu + 1) + 2 for (_, _, nu, n, _) in groups) * N * k
+    bwd_ops = sum(n * (nu + 1 + nu * (nu + 2)) + 3 for (_, _, nu, n, _) in groups) * N * k
+    kw = dict(n_tiles=T, block_n=bn)
+
+    def layer_calls(layer):
+        """The four kernels' calls at this layer's shapes, on fresh inputs."""
+        A_t, W_t, G_t = randn(N, d_in, k), randn(N, P, k), randn(N, d_out, k)
+        tp = CONFIG.tp_spec_at(layer)
+        d_sh, d_h, n_paths, d_a = tp.y_spec.dim, tp.h_spec.dim, tp.n_paths, tp.out_spec.dim
+        n_ent = len(tpk.tp_entries(tp))
+        Y_b, h_b, R_b = randn(E_p, d_sh), randn(E_p, d_h, k), randn(E_p, n_paths, k)
+        G_a = randn(T * bn, d_a, k)
+        slot_bytes = 4 * n_valid * (d_sh + (d_h + n_paths) * k) + 5 * E_p
+        return {
+            "symcon_fwd": dict(
+                run=lambda: sck.symcon_fwd(A_t, W_t, spec),
+                plain=lambda: sck.symcon_plain(A_t, W_t, spec),
+                bytes=4 * N * k * (d_in + P + d_out), ops=fwd_ops),
+            "symcon_bwd": dict(
+                run=lambda: sck.symcon_bwd(A_t, W_t, G_t, spec),
+                plain=lambda: sck.symcon_bwd_plain(A_t, W_t, G_t, spec),
+                bytes=4 * N * k * (2 * (d_in + P) + d_out), ops=bwd_ops),
+            "tp_scatter_fwd": dict(
+                run=lambda: tpk.tp_scatter(Y_b, h_b, R_b, local, valid, tp, **kw),
+                plain=lambda: tpk.tp_scatter_plain(Y_b, h_b, R_b, local, valid, tp, **kw),
+                bytes=slot_bytes + 4 * T * bn * d_a * k, ops=4 * n_valid * k * n_ent),
+            "tp_gather_bwd": dict(
+                run=lambda: tpk.tp_gather_bwd(G_a, Y_b, h_b, R_b, local, valid, tp, **kw),
+                plain=lambda: tpk.tp_gather_bwd_plain(
+                    G_a, Y_b, h_b, R_b, local, valid, tp, **kw),
+                bytes=(slot_bytes + 4 * rows_needed * d_a * k
+                       + 4 * E_p * (d_sh + (d_h + n_paths) * k)),
+                ops=11 * n_valid * k * n_ent),
+        }
+
+    calls = {name: [] for name in KERNELS}
+    for layer in range(CONFIG.n_interactions):
+        for name, c in layer_calls(layer).items():
+            calls[name].append(dict(c, layer=layer))
+
+    results = {}
+    for name, cs in calls.items():
+        rows = []
+        for c in cs:
+            got, want = c["run"](), c["plain"]()
+            torch.cuda.synchronize()
+            err, scale, ok = _compare(got, want)
+            ms = _time_ms(c["run"], reps=20)
+            plain_ms = _time_ms(c["plain"], reps=3)
+            bound, bound_by = _bound_ms(c["bytes"], c["ops"])
+            print(f"kernel {name} layer {c['layer']}: max_abs_err={err:.3e} "
+                  f"max_rel_err={err / max(scale, 1e-30):.3e} "
+                  f"tol={KERNEL_TOL:g}*max(1,{scale:.3g}) ok={ok} "
+                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({bound_by})",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"kernel {name} layer {c['layer']} disagrees "
+                                     f"with its plain version: {err:.3e}")
+            rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                             bytes=c["bytes"], ops=c["ops"]))
+        n_bytes = sum(r["bytes"] for r in rows)
+        n_ops = sum(r["ops"] for r in rows)
+        bound, bound_by = _bound_ms(n_bytes, n_ops)
+        results[name] = dict(
+            max_abs_err=max(r["err"] for r in rows),
+            ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+            bound_ms=bound, bound_by=bound_by,
+            per_layer_ms=[r["ms"] for r in rows],
+        )
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phases 3-4: serve on the card, compare with the CPU
+# ---------------------------------------------------------------------------
+
+
+def skewed_requests():
+    """Hubs from the large tail interleaved with small molecules."""
+    ds = SyntheticCFMDataset(256, seed=1, max_atoms=max(CAPACITIES))
+    by_size = sorted(range(len(ds)), key=lambda i: int(ds.sizes[i]))
+    hub_pool, small_pool = by_size[-32:], by_size[:128]
+    rng = random.Random(SEED)
+    picks = [rng.choice(hub_pool if rng.random() < 0.2 else small_pool)
+             for _ in range(N_REQUESTS)]
+    max_edges = max(CAPACITIES) * EDGE_FACTOR
+    mols = [m for m in (ds.get(i) for i in picks) if m.n_edges <= max_edges]
+    assert len(mols) == N_REQUESTS, "a request overflowed the largest bucket"
+    return mols
+
+
+def serve(params, mols):
+    cfg = ServeConfig(capacities=CAPACITIES, edge_factor=EDGE_FACTOR,
+                      n_workers=2, max_wait_s=0.01)
+    t0 = time.perf_counter()
+    server = GraphServer(CONFIG, params, cfg)  # device None: the CUDA card
+    print(f"server warm in {time.perf_counter() - t0:.2f}s "
+          f"(buckets {[b.max_nodes for b in server.buckets]})", flush=True)
+    for spec in KERNELS.values():
+        spec["kernel"].launches = 0
+    futures = []
+    for m in mols:
+        futures.append(server.submit(m, timeout=60.0))
+        time.sleep(0.001)  # a trickle, so waves form and mix
+    results = [f.result(timeout=600.0) for f in futures]
+    torch.cuda.synchronize()
+    launches = {name: spec["kernel"].launches for name, spec in KERNELS.items()}
+    stats = server.stats()
+    server.close()
+    for m, r in zip(mols, results):
+        assert np.isfinite(r.energy), "non-finite energy"
+        assert r.forces.shape == (m.n_atoms, 3) and np.isfinite(r.forces).all()
+    assert stats["served"] == len(mols) and stats["failed"] == 0, stats
+    return results, stats, launches, server.buckets
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+def profile_serving(params, mols):
+    """Serve the same requests again under ``torch.profiler``: the share of
+    the wall time the card is busy, and on which operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = ServeConfig(capacities=CAPACITIES, edge_factor=EDGE_FACTOR,
+                      n_workers=2, max_wait_s=0.01)
+    server = GraphServer(CONFIG, params, cfg)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        futures = [server.submit(m, timeout=60.0) for m in mols]
+        for f in futures:
+            f.result(timeout=600.0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    bins = sum(server.stats()["bucket_bins"].values())
+    server.close()
+    events = [e for e in prof.key_averages() if _device_us(e) > 0]
+    busy_ms = sum(_device_us(e) for e in events) / 1e3
+    if busy_ms == 0:
+        print("profile: device time not measured (the profiler saw no device time)")
+        return
+    top = sorted(events, key=_device_us, reverse=True)[:8]
+    print(f"profile: {len(mols)} graphs in {bins} bins, wall_ms={wall_ms:.1f} "
+          f"device_busy_ms={busy_ms:.1f} device_idle_share={1 - busy_ms / wall_ms:.3f} "
+          f"device_ops={sum(e.count for e in events)}", flush=True)
+    for e in top:
+        print(f"profile top: {_device_us(e) / 1e3:9.3f} ms x{e.count:<5d} {e.key[:90]}")
+
+
+def compare_with_cpu(params, mols, results, buckets):
+    engine = ServeEngine(CONFIG, params, buckets, device="cpu")
+    order = sorted(range(len(mols)), key=lambda i: mols[i].n_atoms)
+    worst = 0.0
+    for i in (order[0], order[len(order) // 2], order[-1]):
+        m, r = mols[i], results[i]
+        bucket = select_bucket(buckets, m.n_atoms, m.n_edges, 1)
+        batch, _ = engine.collate([m], bucket)
+        e, f = engine.forward(batch, bucket)
+        e_cpu, f_cpu = float(e[0]), f[: m.n_atoms].numpy()
+        de = abs(r.energy - e_cpu) / max(abs(e_cpu), 1e-6)
+        df = float(np.abs(r.forces - f_cpu).max()) / max(float(np.abs(f_cpu).max()), 1e-6)
+        print(f"cpu compare: {m.n_atoms} atoms E_gpu={r.energy:.6f} E_cpu={e_cpu:.6f} "
+              f"rel_err_E={de:.2e} rel_err_F={df:.2e} (tol {SERVE_RTOL:g})", flush=True)
+        if de > SERVE_RTOL or df > SERVE_RTOL:
+            raise AssertionError(f"GPU and CPU disagree on a {m.n_atoms}-atom molecule")
+        worst = max(worst, de, df)
+    engine.close()
+    return worst
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    t0 = time.perf_counter()
+    cuda_lib.build()
+    print(f"kernels built in {time.perf_counter() - t0:.1f}s", flush=True)
+    for source, log in cuda_lib.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {source}: {line.strip()}")
+
+    kernel_results = check_kernels(dev)
+
+    params = init_mace(CONFIG, torch.Generator().manual_seed(SEED))
+    mols = skewed_requests()
+    results, stats, launches, buckets = serve(params, mols)
+    print(f"serve: {stats['served']} graphs in {stats['wall_s']:.3f}s "
+          f"graphs_per_s={stats['graphs_per_s']:.2f} "
+          f"p50_ms={stats['latency_p50_ms']:.1f} p99_ms={stats['latency_p99_ms']:.1f} "
+          f"bins={stats['bucket_bins']} launches={launches}", flush=True)
+    missing = [name for name, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"the serving run launched no {missing}")
+
+    profile_serving(params, mols)
+    compare_with_cpu(params, mols, results, buckets)
+
+    print(card)
+    print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],
+             launches=launches[name], max_abs_err=kernel_results[name]["max_abs_err"],
+             ms=kernel_results[name]["ms"], plain_ms=kernel_results[name]["plain_ms"],
+             bound_ms=kernel_results[name]["bound_ms"],
+             bound_by=kernel_results[name]["bound_by"], library_ms=None,
+             per_layer_ms=kernel_results[name]["per_layer_ms"])
+        for name, spec in KERNELS.items()
+    ]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,61 @@
+"""Parameter bridge between the JAX package's pytrees and the port.
+
+Torch cannot reproduce ``jax.random``, so a test gives both models the same
+weights by converting the JAX parameters (as numpy) into the port's nested
+dict of tensors.  Flat keys are the path strings that the JAX package's
+``train/checkpoint.py::_flatten`` writes: dict keys joined by ``/``, e.g.
+``layer_0/symcon/w_L0_nu2``.  No JAX import is needed: the caller passes
+numpy arrays.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+SEP = "/"
+
+
+def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested dict -> {``a/b/c``: leaf}."""
+    flat: Dict[str, Any] = {}
+    for key, val in tree.items():
+        path = f"{prefix}{SEP}{key}" if prefix else str(key)
+        if isinstance(val, Mapping):
+            flat.update(flatten(val, path))
+        else:
+            flat[path] = val
+    return flat
+
+
+def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """{``a/b/c``: leaf} -> nested dict."""
+    tree: Dict[str, Any] = {}
+    for path, val in flat.items():
+        node = tree
+        *parents, leaf = path.split(SEP)
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return tree
+
+
+def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """JAX parameters as numpy (nested like ``init_mace``'s pytree, or flat
+    with checkpoint path keys) -> the port's nested dict of float32 CPU
+    tensors."""
+    flat = flatten(tree)
+    return unflatten(
+        {k: torch.as_tensor(np.array(v, dtype=np.float32)) for k, v in flat.items()}
+    )
+
+
+def params_to_numpy(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's parameters -> {checkpoint path: numpy array}."""
+    return {k: v.detach().cpu().numpy() for k, v in flatten(params).items()}
+
+
+def params_to(params: Mapping[str, Any], device) -> Dict[str, Any]:
+    """The same nested dict with every tensor moved to ``device``."""
+    return unflatten({k: v.to(device) for k, v in flatten(params).items()})

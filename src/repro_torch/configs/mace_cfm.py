@@ -1,0 +1,19 @@
+"""The paper's own workload: MACE CFM (§5.2 hyperparameters), on the port's
+CUDA kernels.  The widths are those of the JAX package's
+``configs/mace_cfm.py::CONFIG``; only the impl names differ."""
+from repro_torch.core.mace import MaceConfig
+
+CONFIG = MaceConfig(
+    n_species=89,            # MPtrj-like species coverage
+    channels=128,
+    hidden_ls=(0, 1),        # 128x0e + 128x1o
+    sh_lmax=3,
+    a_ls=(0, 1, 2, 3),
+    correlation=2,           # paper §5.2 ("body order 4" counting)
+    n_interactions=2,
+    r_max=4.5,
+    num_bessel=8,
+    avg_num_neighbors=14.0,
+    impl="cuda",
+    interaction_impl="cuda",
+)

@@ -1,0 +1,83 @@
+"""Symmetric tensor contraction (paper Algorithm 3): raise the atomic basis
+A_{i,k,lm} to correlation order nu, producing higher-body-order features
+
+    B_{i,k,LM} = sum_{nu=1}^{nu_max} sum_eta W^{(nu)}_{z_i,k,eta}
+                 sum_{m1..m_nu} U^{(L,nu)}[m1..m_nu, M, eta] prod_x A_{i,k,m_x}
+
+with the generalized Clebsch-Gordan U tensors of :func:`repro_torch.core.cg.
+u_tensor`.  Port of the spec, table and init half of the JAX package's
+``core/symmetric_contraction.py``; the kernels live in ``repro_torch.kernels.
+symmetric_contraction`` and the ``symcon_ref``/``symcon_fused`` twins wait
+for the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from .cg import u_tensor, u_tensor_nonzeros
+from .irreps import LSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class SymConSpec:
+    in_spec: LSpec         # irreps of A (e.g. 0+1+2+3)
+    out_spec: LSpec        # irreps of B (e.g. 0+1)
+    nu_max: int            # max correlation order (paper: 2; MACE default 3)
+
+    def terms(self) -> List[Tuple[int, int]]:
+        """All (L, nu) pairs with a nonempty path space."""
+        out = []
+        for L in self.out_spec:
+            for nu in range(1, self.nu_max + 1):
+                U = u_tensor(tuple(self.in_spec.ls), L, nu)
+                if U.shape[-1] > 0:
+                    out.append((L, nu))
+        return out
+
+    def n_paths(self, L: int, nu: int) -> int:
+        return u_tensor(tuple(self.in_spec.ls), L, nu).shape[-1]
+
+    def weight_shapes(self, n_species: int, channels: int):
+        """Parameter shapes: {(L, nu): [n_species, channels, n_paths]}."""
+        return {
+            (L, nu): (n_species, channels, self.n_paths(L, nu))
+            for (L, nu) in self.terms()
+        }
+
+
+def init_symcon_weights(
+    generator: torch.Generator, spec: SymConSpec, n_species: int, channels: int
+) -> Dict[str, torch.Tensor]:
+    params = {}
+    shapes = spec.weight_shapes(n_species, channels)
+    for (L, nu), shp in sorted(shapes.items()):
+        params[f"w_L{L}_nu{nu}"] = torch.randn(shp, generator=generator) / math.sqrt(
+            shp[-1]
+        )
+    return params
+
+
+@dataclasses.dataclass(frozen=True)
+class SymConTables:
+    """Sparse U tables per (L, nu)."""
+
+    entries: Tuple[Tuple[int, int, np.ndarray, np.ndarray, np.ndarray, np.ndarray], ...]
+    # each: (L, nu, idx [nnz, nu], M [nnz], eta [nnz], val [nnz])
+
+
+@functools.lru_cache(maxsize=None)
+def build_symcon_tables(spec: SymConSpec) -> SymConTables:
+    """Build (and memoise per spec) the sparse U tables: nu_max=3 tables take
+    minutes to enumerate, so every caller binding the same spec shares one
+    build."""
+    entries = []
+    for (L, nu) in spec.terms():
+        idx, M, eta, val = u_tensor_nonzeros(tuple(spec.in_spec.ls), L, nu)
+        entries.append((L, nu, idx, M, eta, val))
+    return SymConTables(tuple(entries))

@@ -1,0 +1,244 @@
+"""Symmetric-contraction kernels (paper Algorithm 3) in kernel layout.
+
+The CUDA kernels are ``csrc/symmetric_contraction.cu`` (``symcon_fwd``,
+``symcon_bwd``); they replace the Pallas TPU kernels ``_symcon_kernel`` and
+``_symcon_bwd_kernel`` of the JAX package's
+``kernels/symmetric_contraction/kernel.py``.  Beside each is its plain
+PyTorch version over the same CG groups:
+
+* :func:`symcon_plain` — port of the JAX ``symcon_xla_raw``;
+* :func:`symcon_bwd_plain` — an explicit loop over the groups, the product
+  rule of ``_symcon_bwd_kernel``.
+
+The wrappers :func:`symcon_fwd` and :func:`symcon_bwd` launch the kernel on
+a CUDA tensor and take the plain version only for a CPU tensor.
+
+Layout: A [N, d_in, k], W [N, P_total, k] (species-gathered, terms
+concatenated along the path axis), B [N, d_out, k]; k minor.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.symmetric_contraction import (
+    SymConSpec,
+    SymConTables,
+    build_symcon_tables,
+)
+from repro_torch.kernels.cuda_lib import INT, PTR, CudaKernel
+
+MAX_D_IN = 32  # csrc/symmetric_contraction.cu's per-thread A column
+
+SYMCON_FWD = CudaKernel(
+    "symmetric_contraction.cu", "symcon_fwd", [PTR] * 6 + [INT] * 6
+)
+SYMCON_BWD = CudaKernel(
+    "symmetric_contraction.cu", "symcon_bwd", [PTR] * 8 + [INT] * 6
+)
+
+
+def _group_entries(
+    spec: SymConSpec, tables: SymConTables
+) -> Tuple[List[Tuple[int, int, int, int, List[Tuple[Tuple[int, ...], float]]]], int]:
+    """Flatten tables into per-(term, eta, M) entry groups.
+
+    Returns (groups, P_total) where each group is
+    (w_offset + eta, out_offset + M, nu, n_entries, [(idx_tuple, val), ...]).
+    """
+    groups = []
+    w_off = 0
+    for (L, nu, idx, M, eta, val) in tables.entries:
+        out_off = spec.out_spec.slice_for(L).start
+        n_paths = spec.n_paths(L, nu)
+        buckets: Dict[Tuple[int, int], List[Tuple[Tuple[int, ...], float]]] = {}
+        for e in range(len(val)):
+            key = (int(eta[e]), int(M[e]))
+            buckets.setdefault(key, []).append(
+                (tuple(int(x) for x in idx[e]), float(val[e]))
+            )
+        for (et, m), ents in sorted(buckets.items()):
+            groups.append((w_off + et, out_off + m, nu, len(ents), ents))
+        w_off += n_paths
+    return groups, w_off
+
+
+@functools.lru_cache(maxsize=None)
+def _host_tables(spec: SymConSpec):
+    groups, p_total = _group_entries(spec, build_symcon_tables(spec))
+    if any(nu > 3 for (_, _, nu, _, _) in groups):
+        raise NotImplementedError("the CUDA symcon kernels take nu <= 3")
+    rows, idx, val = [], [], []
+    for (w_idx, out_idx, nu, _, ents) in groups:
+        rows.append((w_idx, out_idx, nu, len(idx), len(idx) + len(ents)))
+        for (ix, v) in ents:
+            idx.append(tuple(ix) + (0,) * (3 - len(ix)))
+            val.append(v)
+    return (
+        np.asarray(rows, np.int32).reshape(-1, 5),
+        np.asarray(idx, np.int32).reshape(-1, 3),
+        np.asarray(val, np.float32),
+        p_total,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def device_tables(spec: SymConSpec, device: torch.device):
+    """(groups [G, 5], ent_idx [nnz, 3], ent_val [nnz]) on ``device``,
+    built once per spec and device."""
+    rows, idx, val, _ = _host_tables(spec)
+    return tuple(torch.as_tensor(a, device=device) for a in (rows, idx, val))
+
+
+def p_total_of(spec: SymConSpec) -> int:
+    return _host_tables(spec)[3]
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def symcon_plain(A_t: torch.Tensor, W_t: torch.Tensor, spec: SymConSpec) -> torch.Tensor:
+    """Port of the JAX ``symcon_xla_raw``: B_t [N, d_out, k]."""
+    groups, p_total = _group_entries(spec, build_symcon_tables(spec))
+    assert W_t.shape[1] == p_total, (W_t.shape, p_total)
+    N, _, k = A_t.shape
+    cols = [None] * spec.out_spec.dim
+    for (w_idx, out_idx, nu, _, ents) in groups:
+        s = None
+        for (idx, val) in ents:
+            t = A_t[:, idx[0], :]
+            for x in range(1, nu):
+                t = t * A_t[:, idx[x], :]
+            term = t * val
+            s = term if s is None else s + term
+        c = W_t[:, w_idx, :] * s
+        cols[out_idx] = c if cols[out_idx] is None else cols[out_idx] + c
+    zeros = A_t.new_zeros((N, k))
+    return torch.stack([c if c is not None else zeros for c in cols], dim=1)
+
+
+def symcon_bwd_plain(
+    A_t: torch.Tensor, W_t: torch.Tensor, G_t: torch.Tensor, spec: SymConSpec
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dA_t [N, d_in, k], dW_t [N, P_total, k] by the product rule, group by
+    group (the sweep of the TPU ``_symcon_bwd_kernel``)."""
+    groups, p_total = _group_entries(spec, build_symcon_tables(spec))
+    N, d_in, k = A_t.shape
+    da = [None] * d_in
+    dw = [None] * p_total
+
+    def acc(buf, i, v):
+        buf[i] = v if buf[i] is None else buf[i] + v
+
+    for (w_idx, out_idx, nu, _, ents) in groups:
+        g = G_t[:, out_idx, :]
+        gw = g * W_t[:, w_idx, :]
+        s = None
+        for (idx, val) in ents:
+            t = A_t[:, idx[0], :]
+            for x in range(1, nu):
+                t = t * A_t[:, idx[x], :]
+            term = t * val
+            s = term if s is None else s + term
+            for x in range(nu):
+                p = None
+                for y in range(nu):
+                    if y != x:
+                        ay = A_t[:, idx[y], :]
+                        p = ay if p is None else p * ay
+                acc(da, idx[x], gw * val if p is None else gw * (p * val))
+        acc(dw, w_idx, g * s)
+
+    zeros = A_t.new_zeros((N, k))
+    dA = torch.stack([zeros if c is None else c for c in da], dim=1)
+    dW = torch.stack([zeros if c is None else c for c in dw], dim=1)
+    return dA, dW
+
+
+# ---------------------------------------------------------------------------
+# wrappers: kernel on a CUDA tensor, plain version on a CPU tensor
+# ---------------------------------------------------------------------------
+
+
+def _check(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_inputs(A_t, W_t, spec):
+    if A_t.dim() != 3:
+        raise ValueError(f"A_t must be [N, d_in, k], got {tuple(A_t.shape)}")
+    N, d_in, k = A_t.shape
+    if d_in != spec.in_spec.dim:
+        raise ValueError(f"A_t has d_in={d_in}, spec wants {spec.in_spec.dim}")
+    _check("A_t", A_t, (N, d_in, k), A_t.device)
+    _check("W_t", W_t, (N, p_total_of(spec), k), A_t.device)
+    if A_t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {A_t.device}")
+    if A_t.is_cuda and d_in > MAX_D_IN:
+        raise ValueError(f"the CUDA kernel takes d_in <= {MAX_D_IN}, got {d_in}")
+    return N, d_in, k
+
+
+def symcon_fwd(A_t: torch.Tensor, W_t: torch.Tensor, spec: SymConSpec) -> torch.Tensor:
+    """B_t [N, d_out, k]: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    N, d_in, k = _check_inputs(A_t, W_t, spec)
+    if not A_t.is_cuda:
+        return symcon_plain(A_t, W_t, spec)
+    d_out = spec.out_spec.dim
+    B_t = torch.empty((N, d_out, k), dtype=A_t.dtype, device=A_t.device)
+    if B_t.numel() == 0:
+        return B_t
+    groups, ent_idx, ent_val = device_tables(spec, A_t.device)
+    SYMCON_FWD(
+        A_t.data_ptr(), W_t.data_ptr(), B_t.data_ptr(), groups.data_ptr(),
+        ent_idx.data_ptr(), ent_val.data_ptr(), groups.shape[0], N, d_in,
+        W_t.shape[1], d_out, k,
+    )
+    return B_t
+
+
+def symcon_bwd(
+    A_t: torch.Tensor, W_t: torch.Tensor, G_t: torch.Tensor, spec: SymConSpec
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dA_t, dW_t): the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    N, d_in, k = _check_inputs(A_t, W_t, spec)
+    d_out = spec.out_spec.dim
+    _check("G_t", G_t, (N, d_out, k), A_t.device)
+    if not A_t.is_cuda:
+        return symcon_bwd_plain(A_t, W_t, G_t, spec)
+    dA = torch.empty_like(A_t)
+    dW = torch.empty_like(W_t)
+    if dA.numel() == 0:
+        return dA, dW
+    groups, ent_idx, ent_val = device_tables(spec, A_t.device)
+    SYMCON_BWD(
+        A_t.data_ptr(), W_t.data_ptr(), G_t.data_ptr(), dA.data_ptr(),
+        dW.data_ptr(), groups.data_ptr(), ent_idx.data_ptr(),
+        ent_val.data_ptr(), groups.shape[0], N, d_in, W_t.shape[1], d_out, k,
+    )
+    return dA, dW
+
+
+def gather_weights(
+    weights: Dict[str, torch.Tensor], species: torch.Tensor, spec: SymConSpec,
+) -> torch.Tensor:
+    """Per-atom weight gather + term concat: [N, k, P_total]."""
+    parts = [
+        weights[f"w_L{L}_nu{nu}"][species]  # [N, k, n_paths]
+        for (L, nu, *_rest) in build_symcon_tables(spec).entries
+    ]
+    return torch.cat(parts, dim=-1)

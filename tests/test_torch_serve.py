@@ -1,0 +1,157 @@
+"""Port parity, serving: the port's request packing against the JAX
+package's, a CPU ``GraphServer`` of the port (plain kernel versions) whose
+served energies and forces match the JAX model per molecule with bridged
+parameters, the worker-fault drill, and the rule that serving without
+``device="cpu"`` needs a CUDA card.
+
+Tolerance: rtol 1e-4, atol 1e-5 for served energies and forces, the
+reference's own served-vs-direct bound (tests/test_serve.py).
+"""
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.mace import MaceConfig as JConfig
+from repro.core.mace import init_mace as jinit
+from repro.core.mace import mace_energy_forces as jforces
+from repro.data.collate import collate_bin as jcollate
+from repro.serve import bucket_ladder as jladder
+from repro.serve import pack_requests as jpack
+from repro_torch.bridge import params_from_jax
+from repro_torch.core.mace import MaceConfig, init_mace
+from repro_torch.data.molecules import SyntheticCFMDataset
+from repro_torch.serve import (
+    GraphServer,
+    RequestTooLarge,
+    ServeConfig,
+    ServeEngine,
+    bucket_key,
+    bucket_ladder,
+    pack_requests,
+)
+
+WIDTHS = dict(n_species=10, channels=4, hidden_ls=(0, 1), sh_lmax=2,
+              a_ls=(0, 1, 2), correlation=2, n_interactions=2,
+              avg_num_neighbors=10.0)
+TCFG = MaceConfig(**WIDTHS, impl="cuda", interaction_impl="cuda")
+# the reference model on its XLA impl, which the JAX tests hold equal to
+# its Pallas kernels (tests/test_kernels.py::test_mace_model_pallas_impl_parity)
+JCFG = JConfig(**WIDTHS, impl="fused", interaction_impl="fused")
+CAPACITIES = (24, 48)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pack_requests_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 48, size=60)
+    edges = sizes * rng.integers(2, 25, size=60)  # fits the 48-atom bucket alone
+    got = pack_requests(sizes, edges, bucket_ladder(CAPACITIES, edge_factor=24))
+    want = jpack(sizes, edges, jladder(CAPACITIES, edge_factor=24))
+    assert [(idx, bucket_key(b)) for idx, b in got] == [
+        (idx, f"n{b.max_nodes}_e{b.max_edges}_g{b.max_graphs}") for idx, b in want
+    ]
+
+
+def test_pack_requests_rejects_oversize_request():
+    ladder = bucket_ladder([64], edge_factor=8)
+    with pytest.raises(RequestTooLarge):
+        pack_requests([65], [10], ladder)
+    assert pack_requests([], [], ladder) == []
+
+
+@pytest.fixture(scope="module")
+def served():
+    """One skewed-size load through a 2-bucket CPU server of the port, with
+    parameters bridged from the JAX model."""
+    jparams = jax.tree.map(np.asarray, jinit(jax.random.PRNGKey(0), JCFG))
+    ds = SyntheticCFMDataset(64, seed=3, max_atoms=max(CAPACITIES))
+    server = GraphServer(
+        TCFG, params_from_jax(jparams),
+        ServeConfig(capacities=CAPACITIES, edge_factor=48, n_workers=2,
+                    max_wait_s=0.01),
+        device="cpu",
+    )
+    by_size = sorted(range(len(ds)), key=lambda i: int(ds.sizes[i]))
+    picks = by_size[-3:] + by_size[:6] + by_size[-3:]  # hubs around small ones
+    mols = [ds.get(i) for i in picks]
+    futures = [server.submit(m, timeout=30.0) for m in mols]
+    results = [f.result(timeout=300.0) for f in futures]
+    stats = server.stats()
+    yield dict(server=server, mols=mols, results=results, stats=stats,
+               jparams=jparams)
+    server.close()
+
+
+def test_served_mix_resolves_every_request(served):
+    stats = served["stats"]
+    assert stats["served"] == len(served["mols"]) and stats["failed"] == 0
+    assert any(r.n_copacked > 1 for r in served["results"])
+    for m, r in zip(served["mols"], served["results"]):
+        assert r.forces.shape == (m.n_atoms, 3)
+        assert np.isfinite(r.energy) and np.isfinite(r.forces).all()
+
+
+def test_served_energies_forces_match_jax(served):
+    """Each request's energy and forces, routed back through pack -> collate
+    -> the port's bucket forward -> future, against the JAX model on the
+    molecule alone in the same bucket shape."""
+    server = served["server"]
+    fns = {}
+    for mol, res in zip(served["mols"], served["results"]):
+        bucket = next(b for b in server.buckets if bucket_key(b) == res.bucket)
+        G = int(bucket.max_graphs)
+        fn = fns.setdefault(G, jax.jit(lambda p, b, G=G: jforces(p, JCFG, b, G)))
+        batch = {k: jnp.asarray(v) for k, v in jcollate([mol], bucket, strict=True).items()}
+        e_ref, f_ref = fn(served["jparams"], batch)
+        np.testing.assert_allclose(res.energy, float(e_ref[0]), rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(res.forces, np.asarray(f_ref[: mol.n_atoms]),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_worker_kill_drain_and_rebuild_drops_nothing():
+    """Kill the only worker mid-load, heal synchronously, and require every
+    request to resolve: the dying worker requeues its in-flight bin and the
+    rebuild requeues anything stranded."""
+    params = init_mace(TCFG, torch.Generator().manual_seed(0))
+    ds = SyntheticCFMDataset(32, seed=5, max_atoms=24)
+    server = GraphServer(
+        TCFG, params,
+        ServeConfig(capacities=(24,), edge_factor=48, n_workers=1,
+                    max_wait_s=0.005, watchdog_s=0.0),  # heal by hand
+        device="cpu",
+    )
+    try:
+        mols = [ds.get(i) for i in range(12)]
+        server.inject_worker_fault()
+        futures = [server.submit(m, timeout=30.0) for m in mols]
+        t0 = time.perf_counter()
+        while all(w["alive"] for w in server.healthcheck()):
+            assert time.perf_counter() - t0 < 60.0, "worker never died"
+            time.sleep(0.01)
+        assert server.check_and_heal(), "dead worker not detected"
+        results = [f.result(timeout=300.0) for f in futures]
+        assert len(results) == len(mols)
+        assert all(np.isfinite(r.energy) for r in results)
+        stats = server.stats()
+        assert stats["failed"] == 0 and stats["served"] == len(mols)
+        assert stats["rebuilds"] == 1
+        assert server.check_and_heal() is False
+    finally:
+        server.close()
+
+
+def test_serving_without_cpu_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    params = init_mace(TCFG, torch.Generator().manual_seed(0))
+    ladder = bucket_ladder(CAPACITIES)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(TCFG, params, ladder)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(TCFG, params, ladder, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GraphServer(TCFG, params, ServeConfig(capacities=CAPACITIES))

@@ -7,16 +7,23 @@ Run from the repository root (the script finds ``src/repro_torch`` next to
 itself).  Phases, none of them caught, so any failure exits nonzero:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all started together) and print ptxas's register report;
+   source, and per tensor-product spec for the interaction kernels, all
+   started together) and print ptxas's register, stack and spill report
+   per kernel; the two interaction kernels must have no stack frame and no
+   spills;
 2. hold each of the four kernels against its plain PyTorch version on the
    card, at the shapes the 256-atom bucket of the paper's model gives it
    (both interaction layers; receivers with a hub atom spanning several
-   tiles and fully masked padding tiles), and time both;
+   tiles and fully masked padding tiles), check that two launches of each
+   kernel give bit-identical outputs, and time both versions by CUDA events
+   per call (``ms`` and ``plain_ms``, the wrapper's host work included);
 3. start a full-width ``GraphServer`` (the paper's §5.2 widths, random
    weights from a seed, buckets of 64 and 256 atoms, 2 workers) and serve
    48 molecules of a skewed mix; every kernel's launch count over that run
    must be above zero; then serve them once more under ``torch.profiler``
-   for the card's busy and idle share;
+   for the card's busy and idle share, and time each kernel's own device
+   time per launch on phase 2's inputs (``device_ms``, ``torch.profiler``),
+   with its share of its bound per layer (``bound_ms / device_ms``);
 4. serve a few of the same molecules with the same parameters on the CPU
    (plain versions) and compare energies and forces;
 5. report: the card's name and power limit, a serving line, one JSON line
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import json
 import random
+import re
 import subprocess
 import sys
 import time
@@ -63,15 +71,34 @@ EDGE_FACTOR = 48
 N_REQUESTS = 48
 
 KERNELS = {
-    "symcon_fwd": dict(kernel=sck.SYMCON_FWD, source="src/repro_torch/csrc/symmetric_contraction.cu",
+    "symcon_fwd": dict(kernel=sck.SYMCON_FWD, symbol="symcon_fwd_kernel",
+                       source="src/repro_torch/csrc/symmetric_contraction.cu",
                        replaces="src/repro/kernels/symmetric_contraction/kernel.py:82"),
-    "symcon_bwd": dict(kernel=sck.SYMCON_BWD, source="src/repro_torch/csrc/symmetric_contraction.cu",
+    "symcon_bwd": dict(kernel=sck.SYMCON_BWD, symbol="symcon_bwd_kernel",
+                       source="src/repro_torch/csrc/symmetric_contraction.cu",
                        replaces="src/repro/kernels/symmetric_contraction/kernel.py:166"),
-    "tp_scatter_fwd": dict(kernel=tpk.TP_SCATTER_FWD, source="src/repro_torch/csrc/channelwise_tp.cu",
+    "tp_scatter_fwd": dict(kernel=tpk.TP_SCATTER_FWD, symbol="tp_scatter_kernel",
+                           source="src/repro_torch/csrc/channelwise_tp.cu",
                            replaces="src/repro/kernels/channelwise_tp/kernel.py:58"),
-    "tp_gather_bwd": dict(kernel=tpk.TP_GATHER_BWD, source="src/repro_torch/csrc/channelwise_tp.cu",
+    "tp_gather_bwd": dict(kernel=tpk.TP_GATHER_BWD, symbol="tp_gather_bwd_kernel",
+                          source="src/repro_torch/csrc/channelwise_tp.cu",
                           replaces="src/repro/kernels/channelwise_tp/kernel.py:106"),
 }
+
+
+def _ptxas_report(log: str):
+    """``{kernel: "S bytes stack frame, ...; Used N registers, ..."}`` from
+    ptxas -v, by the kernel symbols of ``KERNELS``."""
+    symbols = [spec["symbol"] for spec in KERNELS.values()]
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+        if m:
+            name = next((s for s in symbols if s in m.group(1)), m.group(1))
+        elif name and ("stack frame" in line or "registers" in line):
+            text = line.split("ptxas info    :")[-1].strip()
+            out[name] = f"{out[name]}; {text}" if name in out else text
+    return out
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -86,6 +113,24 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, symbol: str, reps: int) -> float:
+    """Mean device milliseconds per launch of the kernel ``symbol`` over
+    ``reps`` calls of ``fn``, from ``torch.profiler``, after a warm-up: the
+    kernel's own time, without the host work around the launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages() if symbol in e.key)
+    if us == 0:
+        raise AssertionError(f"the profiler saw no device time of {symbol}")
+    return us / reps / 1e3
 
 
 def _bound_ms(n_bytes: float, n_ops: float):
@@ -196,29 +241,57 @@ def check_kernels(dev):
             got, want = c["run"](), c["plain"]()
             torch.cuda.synchronize()
             err, scale, ok = _compare(got, want)
+            again = c["run"]()  # every kernel sums in a fixed order
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(
+                got if isinstance(got, tuple) else (got,),
+                again if isinstance(again, tuple) else (again,)))
+            print(f"kernel {name} layer {c['layer']}: two launches bit-identical={same}",
+                  flush=True)
+            if not same:
+                raise AssertionError(f"kernel {name} layer {c['layer']} is not "
+                                     "deterministic")
             ms = _time_ms(c["run"], reps=20)
             plain_ms = _time_ms(c["plain"], reps=3)
             bound, bound_by = _bound_ms(c["bytes"], c["ops"])
             print(f"kernel {name} layer {c['layer']}: max_abs_err={err:.3e} "
                   f"max_rel_err={err / max(scale, 1e-30):.3e} "
                   f"tol={KERNEL_TOL:g}*max(1,{scale:.3g}) ok={ok} "
-                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({bound_by})",
-                  flush=True)
+                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bound:.4f} ({bound_by})", flush=True)
             if not ok:
                 raise AssertionError(f"kernel {name} layer {c['layer']} disagrees "
                                      f"with its plain version: {err:.3e}")
             rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound,
-                             bytes=c["bytes"], ops=c["ops"]))
+                             bytes=c["bytes"], ops=c["ops"], run=c["run"]))
         n_bytes = sum(r["bytes"] for r in rows)
         n_ops = sum(r["ops"] for r in rows)
         bound, bound_by = _bound_ms(n_bytes, n_ops)
         results[name] = dict(
-            max_abs_err=max(r["err"] for r in rows),
-            ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+            rows=rows, max_abs_err=max(r["err"] for r in rows),
+            ms=sum(r["ms"] for r in rows),
+            plain_ms=sum(r["plain_ms"] for r in rows),
             bound_ms=bound, bound_by=bound_by,
-            per_layer_ms=[r["ms"] for r in rows],
         )
     return results
+
+
+def time_kernels(results) -> None:
+    """Each kernel's own device time per launch (``torch.profiler``) on
+    phase 2's inputs, with its share of the bound per layer.  Run after the
+    serving measurements: once the profiler has run in a process, later
+    launches in it were slower (serving runs in PERF.md)."""
+    for name, res in results.items():
+        per_layer = []
+        for layer, r in enumerate(res["rows"]):
+            ms = _device_ms(r["run"], KERNELS[name]["symbol"], reps=20)
+            print(f"kernel {name} layer {layer}: device_ms={ms:.4f} "
+                  f"bound_ms={r['bound']:.4f} share_of_bound={r['bound'] / ms:.3f}",
+                  flush=True)
+            per_layer.append(ms)
+        res.update(device_ms=sum(per_layer), per_layer_device_ms=per_layer,
+                   per_layer_share_of_bound=[r["bound"] / ms
+                                             for r, ms in zip(res["rows"], per_layer)])
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +371,10 @@ def profile_serving(params, mols):
           f"device_ops={sum(e.count for e in events)}", flush=True)
     for e in top:
         print(f"profile top: {_device_us(e) / 1e3:9.3f} ms x{e.count:<5d} {e.key[:90]}")
+    for name, spec in KERNELS.items():
+        mine = [e for e in events if spec["symbol"] in e.key]
+        print(f"profile kernel {name}: {sum(map(_device_us, mine)) / 1e3:.3f} ms "
+              f"x{sum(e.count for e in mine)}")
 
 
 def compare_with_cpu(params, mols, results, buckets):
@@ -336,12 +413,15 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    cuda_lib.build()
+    specs = [CONFIG.tp_spec_at(layer) for layer in range(CONFIG.n_interactions)]
+    cuda_lib.build([("symmetric_contraction.cu", None), *tpk.build_units(specs)])
     print(f"kernels built in {time.perf_counter() - t0:.1f}s", flush=True)
-    for source, log in cuda_lib.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {source}: {line.strip()}")
+    for library, log in cuda_lib.build_logs.items():
+        for kernel, report in _ptxas_report(log).items():
+            print(f"ptxas {library} {kernel}: {report}")
+            stack_or_spill = re.findall(r"(\d+) bytes (?:stack frame|spill)", report)
+            if library.startswith("channelwise_tp") and any(int(n) for n in stack_or_spill):
+                raise AssertionError(f"{kernel} uses a stack frame or spills: {report}")
 
     kernel_results = check_kernels(dev)
 
@@ -357,6 +437,7 @@ def main() -> int:
         raise AssertionError(f"the serving run launched no {missing}")
 
     profile_serving(params, mols)
+    time_kernels(kernel_results)
     compare_with_cpu(params, mols, results, buckets)
 
     print(card)
@@ -366,7 +447,9 @@ def main() -> int:
              ms=kernel_results[name]["ms"], plain_ms=kernel_results[name]["plain_ms"],
              bound_ms=kernel_results[name]["bound_ms"],
              bound_by=kernel_results[name]["bound_by"], library_ms=None,
-             per_layer_ms=kernel_results[name]["per_layer_ms"])
+             device_ms=kernel_results[name]["device_ms"],
+             per_layer_device_ms=kernel_results[name]["per_layer_device_ms"],
+             per_layer_share_of_bound=kernel_results[name]["per_layer_share_of_bound"])
         for name, spec in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

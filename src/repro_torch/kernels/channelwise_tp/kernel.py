@@ -5,9 +5,15 @@ The CUDA kernels are ``csrc/channelwise_tp.cu`` (``tp_scatter_fwd``,
 ``tp_gather_bwd``); they replace the Pallas TPU kernels
 ``_tp_scatter_kernel`` and ``_tp_gather_bwd_kernel`` of the JAX package's
 ``kernels/channelwise_tp/kernel.py``.  The TPU did the scatter as a one-hot
-MXU matmul per tile; on Hopper each thread owns one channel of its tile's
-output rows instead (see the source's note).  Beside each kernel is its
-plain PyTorch version, an explicit loop over the same CG entries:
+MXU matmul per tile; on Hopper the forward gives each thread one (receiver
+row, channel) of a tile and gathers that row's slots, and the backward
+gives each thread one (slot, channel) (see the source's note).  Like the
+TPU kernels, which unroll the CG entries at trace time, the source is built
+once per spec with a generated header (:func:`spec_header`) that unrolls
+the entries, grouped by one index, into straight-line scalar sums over
+operands held in registers.  Beside each
+kernel is its plain PyTorch version, an explicit loop over the same CG
+entries:
 
 * :func:`tp_scatter_plain` — messages per slot, then ``index_add_`` of the
   valid slots into their tile's rows;
@@ -33,14 +39,19 @@ import torch
 from repro_torch.core.channelwise_tp import TPSpec, build_tp_tables
 from repro_torch.kernels.cuda_lib import INT, PTR, CudaKernel
 
-MAX_D = 32     # csrc/channelwise_tp.cu's per-thread d_out / d_sh arrays
-MAX_K = 1024   # one thread per channel in a block
+# Limits of csrc/channelwise_tp.cu: a slot's Y is spread from one lane per
+# component (d_sh <= 32, and d_h, d_out alike; the paper's widths, 16, fit
+# the registers, at 25 the backward spills, see the source's note); the
+# forward sorts a tile's slots in shared memory (epb <= 1024).
+# Any k.
+MAX_D = 32
+MAX_EPB = 1024
 
 TP_SCATTER_FWD = CudaKernel(
-    "channelwise_tp.cu", "tp_scatter_fwd", [PTR] * 8 + [INT] * 9
+    "channelwise_tp.cu", "tp_scatter_fwd", [PTR] * 6 + [INT] * 8
 )
 TP_GATHER_BWD = CudaKernel(
-    "channelwise_tp.cu", "tp_gather_bwd", [PTR] * 11 + [INT] * 9
+    "channelwise_tp.cu", "tp_gather_bwd", [PTR] * 9 + [INT] * 8
 )
 
 
@@ -54,15 +65,77 @@ def tp_entries(spec: TPSpec) -> List[Tuple[int, int, int, int, float]]:
 
 
 @functools.lru_cache(maxsize=None)
-def device_tables(spec: TPSpec, device: torch.device):
-    """(ent [nnz, 4] int32 (m1, m2, m3, path), ent_val [nnz] float32) on
-    ``device``, built once per spec and device."""
-    t = build_tp_tables(spec)
-    ent = np.stack([t.m1, t.m2, t.m3, t.path], axis=1).astype(np.int32)
-    return (
-        torch.as_tensor(np.ascontiguousarray(ent), device=device),
-        torch.as_tensor(t.val.astype(np.float32), device=device),
-    )
+def spec_dims(spec: TPSpec) -> Tuple[int, int, int, int]:
+    """(d_sh, d_h, n_paths, d_out), computed once per spec."""
+    return spec.y_spec.dim, spec.h_spec.dim, spec.n_paths, spec.out_spec.dim
+
+
+def _f32(v: float) -> str:
+    """``v`` rounded to float32, as an exact C++ hex literal."""
+    return float(np.float32(v)).hex() + "f"
+
+
+def _grouped_sums(spec: TPSpec, key: str, target: str, term) -> List[str]:
+    """``target[g] = / += term`` over the CG entries whose ``key`` is g, in
+    table order, for every g; a group without entries is set to zero."""
+    d_sh, d_h, n_paths, d_out = spec_dims(spec)
+    field, n_groups = {"m1": (0, d_sh), "m2": (1, d_h), "m3": (2, d_out),
+                       "path": (3, n_paths)}[key]
+    entries = tp_entries(spec)
+    lines = []
+    for g in range(n_groups):
+        group = [e for e in entries if e[field] == g]
+        if not group:
+            lines.append(f"  {target}[{g}] = 0.f;")
+        for j, (m1, m2, m3, p, val) in enumerate(group):
+            op = "=" if j == 0 else "+="
+            lines.append(f"  {target}[{g}] {op} {term(m1, m2, m3, p, _f32(val))};")
+    return lines
+
+
+@functools.lru_cache(maxsize=None)
+def spec_header(spec: TPSpec) -> str:
+    """The header ``csrc/channelwise_tp.cu`` is built with for ``spec``: its
+    dimensions and the CG entries unrolled, grouped by one index in table
+    order, into straight-line scalar sums over operands in registers: the
+    forward's messages by m3 (``tp_messages``); the backward's dh by m2, dR
+    by path and per-channel dY by m1 (``tp_transpose``).  Each statement
+    reads ``target[g] = / += term``."""
+    d_sh, d_h, n_paths, d_out = spec_dims(spec)
+    msg = _grouped_sums(spec, "m3", "msg",
+                        lambda m1, m2, m3, p, v: f"(y[{m1}] * {v}) * h[{m2}] * r[{p}]")
+    dh = _grouped_sums(spec, "m2", "dh",
+                       lambda m1, m2, m3, p, v: f"(g[{m3}] * r[{p}]) * (y[{m1}] * {v})")
+    dr = _grouped_sums(spec, "path", "dr",
+                       lambda m1, m2, m3, p, v: f"(g[{m3}] * h[{m2}]) * (y[{m1}] * {v})")
+    dy = _grouped_sums(spec, "m1", "dy",
+                       lambda m1, m2, m3, p, v: f"g[{m3}] * h[{m2}] * r[{p}] * {v}")
+    return "\n".join([
+        "// Generated by repro_torch/kernels/channelwise_tp/kernel.py::spec_header",
+        f"// for {spec!r}.",
+        "#pragma once",
+        f"constexpr int D_SH = {d_sh}, D_H = {d_h}, N_P = {n_paths}, D_OUT = {d_out};",
+        "__device__ __forceinline__ void tp_messages(",
+        "    const float (&y)[D_SH], const float (&h)[D_H], const float (&r)[N_P],",
+        "    float (&msg)[D_OUT]) {",
+        *msg,
+        "}",
+        "__device__ __forceinline__ void tp_transpose(",
+        "    const float (&y)[D_SH], const float (&g)[D_OUT], const float (&h)[D_H],",
+        "    const float (&r)[N_P], float (&dh)[D_H], float (&dr)[N_P],",
+        "    float (&dy)[D_SH]) {",
+        *dh,
+        *dr,
+        *dy,
+        "}",
+        "",
+    ])
+
+
+def build_units(specs):
+    """The (source, header) build units of these specs' kernels, for
+    :func:`repro_torch.kernels.cuda_lib.build`."""
+    return [("channelwise_tp.cu", spec_header(spec)) for spec in specs]
 
 
 # ---------------------------------------------------------------------------
@@ -152,16 +225,17 @@ def _check_operands(Y_b, h_b, R_b, local, valid, spec, n_tiles):
         raise ValueError(f"unsupported device {dev}")
     if n_tiles <= 0 or E_p % n_tiles:
         raise ValueError(f"{E_p} edge slots do not split into {n_tiles} tiles")
-    _check("Y_b", Y_b, (E_p, spec.y_spec.dim), torch.float32, dev)
-    _check("h_b", h_b, (E_p, spec.h_spec.dim, k), torch.float32, dev)
-    _check("R_b", R_b, (E_p, spec.n_paths, k), torch.float32, dev)
+    d_sh, d_h_spec, n_paths, d_out = spec_dims(spec)
+    _check("Y_b", Y_b, (E_p, d_sh), torch.float32, dev)
+    _check("h_b", h_b, (E_p, d_h_spec, k), torch.float32, dev)
+    _check("R_b", R_b, (E_p, n_paths, k), torch.float32, dev)
     _check("local", local, (E_p,), torch.int32, dev)
     _check("valid", valid, (E_p,), torch.bool, dev)
-    if dev.type == "cuda" and (
-        k > MAX_K or spec.y_spec.dim > MAX_D or spec.out_spec.dim > MAX_D
-    ):
+    if dev.type == "cuda" and (max(d_sh, d_h, d_out) > MAX_D or E_p // n_tiles > MAX_EPB):
         raise ValueError(
-            f"the CUDA kernels take k <= {MAX_K} and d_sh, d_out <= {MAX_D}"
+            f"the CUDA kernels take d_sh, d_h, d_out <= {MAX_D} and at most "
+            f"{MAX_EPB} slots per tile; got {spec_dims(spec)} and "
+            f"{E_p // n_tiles} slots per tile"
         )
     return E_p, d_h, k
 
@@ -176,16 +250,14 @@ def tp_scatter(
         return tp_scatter_plain(
             Y_b, h_b, R_b, local, valid, spec, n_tiles=n_tiles, block_n=block_n
         )
-    d_out = spec.out_spec.dim
+    d_out = spec_dims(spec)[3]
     out = torch.empty((n_tiles * block_n, d_out, k), dtype=h_b.dtype, device=h_b.device)
     if out.numel() == 0:
         return out
-    ent, ent_val = device_tables(spec, h_b.device)
     TP_SCATTER_FWD(
         Y_b.data_ptr(), h_b.data_ptr(), R_b.data_ptr(), local.data_ptr(),
-        valid.data_ptr(), out.data_ptr(), ent.data_ptr(), ent_val.data_ptr(),
-        ent.shape[0], n_tiles, E_p // n_tiles, block_n, Y_b.shape[1], d_h,
-        R_b.shape[1], d_out, k,
+        valid.data_ptr(), out.data_ptr(), n_tiles, E_p // n_tiles, block_n,
+        *spec_dims(spec), k, header=spec_header(spec),
     )
     return out
 
@@ -196,7 +268,7 @@ def tp_gather_bwd(
     """(dY_b, dh_b, dR_b): the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
     E_p, d_h, k = _check_operands(Y_b, h_b, R_b, local, valid, spec, n_tiles)
-    d_out = spec.out_spec.dim
+    d_out = spec_dims(spec)[3]
     _check("G_t", G_t, (n_tiles * block_n, d_out, k), torch.float32, h_b.device)
     if not h_b.is_cuda:
         return tp_gather_bwd_plain(
@@ -207,12 +279,10 @@ def tp_gather_bwd(
     dR = torch.empty_like(R_b)
     if E_p == 0 or k == 0:
         return dY.zero_(), dh, dR
-    ent, ent_val = device_tables(spec, h_b.device)
     TP_GATHER_BWD(
         G_t.data_ptr(), Y_b.data_ptr(), h_b.data_ptr(), R_b.data_ptr(),
         local.data_ptr(), valid.data_ptr(), dY.data_ptr(), dh.data_ptr(),
-        dR.data_ptr(), ent.data_ptr(), ent_val.data_ptr(), ent.shape[0],
-        n_tiles, E_p // n_tiles, block_n, Y_b.shape[1], d_h, R_b.shape[1],
-        d_out, k,
+        dR.data_ptr(), n_tiles, E_p // n_tiles, block_n, *spec_dims(spec), k,
+        header=spec_header(spec),
     )
     return dY, dh, dR

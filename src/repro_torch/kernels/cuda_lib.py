@@ -2,9 +2,12 @@
 
 Each source under ``repro_torch/csrc`` is compiled by ``nvcc`` into a shared
 library with a plain C interface and loaded through ``ctypes``: no PyTorch
-headers, so a build takes seconds.  Libraries are built at first use into
-``build/kernels/`` at the repository root, named by a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
+headers, so a build takes seconds.  A source may be built with a generated
+header (included as ``KERNEL_HEADER``) that fixes compile-time constants,
+such as the CG entries of one tensor-product spec; each (source, header)
+pair is its own library.  Libraries are built at first use into ``build/kernels/`` at the
+repository root, named by a hash of the source, the header and the flags,
+so an edited source or a new header is rebuilt and an unchanged one is
 reused.  A build failure raises with the compiler's output.
 
 Every C entry point takes device pointers, integer sizes and the CUDA
@@ -21,22 +24,25 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("symmetric_contraction.cu", "channelwise_tp.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# (source under csrc/, generated header text or None)
+Unit = Tuple[str, Optional[str]]
+
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
-# compiler output (ptxas register / spill report) of each source built by
-# this process
+_libs: Dict[Unit, ctypes.CDLL] = {}
+# compiler output (ptxas register / stack / spill report) of each library,
+# by library name; kept beside the library so one built earlier still has
+# its report
 build_logs: Dict[str, str] = {}
 
 
@@ -51,25 +57,35 @@ def _nvcc() -> str:
     )
 
 
-def library_path(source: str) -> Path:
-    """Where ``source``'s library lives, keyed by source and flag contents."""
+def library_path(source: str, header: Optional[str] = None) -> Path:
+    """Where a unit's library lives, keyed by source, header and flags."""
     digest = hashlib.sha256(
-        (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / source).read_bytes() + (header or "").encode()
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
-def build(sources: Iterable[str] = SOURCES) -> None:
-    """Compile every source whose library is missing: one ``nvcc`` process
-    per source, all started together."""
+def build(units: Iterable[Unit]) -> None:
+    """Compile every unit whose library is missing: one ``nvcc`` process
+    per unit, all started together."""
     jobs = []
-    for source in sources:
-        out = library_path(source)
+    for source, header in units:
+        out = library_path(source, header)
         if out.exists():
+            if out.with_suffix(".log").exists():
+                build_logs[out.stem] = out.with_suffix(".log").read_text()
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
+        if header is not None:  # the source includes it as KERNEL_HEADER
+            hdr = out.with_suffix(".cuh")
+            hdr_tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.cuh")
+            hdr_tmp.write_text(header)
+            os.replace(hdr_tmp, hdr)  # a concurrent build never reads half a header
+            cmd.append(f'-DKERNEL_HEADER="{hdr}"')
+        cmd.append(str(CSRC / source))
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -77,48 +93,51 @@ def build(sources: Iterable[str] = SOURCES) -> None:
     failed: List[str] = []
     for source, out, tmp, proc in jobs:
         log, _ = proc.communicate()
-        build_logs[source] = log
+        build_logs[out.stem] = log
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {source}:\n{log}")
+            failed.append(f"nvcc failed for {source} ({out.stem}):\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     if failed:
         raise RuntimeError("\n".join(failed))
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library of ``source``, built first if needed."""
+def load(source: str, header: Optional[str] = None) -> ctypes.CDLL:
+    """The loaded library of a unit, built first if needed."""
     with _lock:
-        lib = _libs.get(source)
+        lib = _libs.get((source, header))
         if lib is None:
-            build([source])
-            lib = ctypes.CDLL(str(library_path(source)))
-            _libs[source] = lib
+            build([(source, header)])
+            lib = ctypes.CDLL(str(library_path(source, header)))
+            _libs[(source, header)] = lib
         return lib
 
 
 class CudaKernel:
     """One C entry point ``symbol(args..., stream) -> cudaError_t`` of
-    ``source``, with a count of the launches made through it."""
+    ``source``, with a count of the launches made through it (over every
+    header the source is built with)."""
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
-        self._fn = None
+        self._fns: Dict[Optional[str], object] = {}
         self._count_lock = threading.Lock()
 
-    def _bind(self):
-        if self._fn is None:
-            fn = getattr(load(self.source), self.symbol)
+    def _bind(self, header: Optional[str]):
+        fn = self._fns.get(header)
+        if fn is None:
+            fn = getattr(load(self.source, header), self.symbol)
             fn.argtypes = [*self.argtypes, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            self._fns[header] = fn
+        return fn
 
-    def __call__(self, *args) -> None:
-        fn = self._bind()
+    def __call__(self, *args, header: Optional[str] = None) -> None:
+        fn = self._bind(header)
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(

@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.mace_cfm import CONFIG
 from repro_torch.core.channelwise_tp import TPSpec
 from repro_torch.core.irreps import lspec, sh_spec
 from repro_torch.core.symmetric_contraction import SymConSpec
-from repro_torch.data.blocking import block_edges
+from repro_torch.data.blocking import block_edges, static_n_tiles
 from repro_torch.kernels.channelwise_tp import kernel as tpk
 from repro_torch.kernels.symmetric_contraction import kernel as sck
 
@@ -51,30 +52,106 @@ def test_symcon_kernels_match_plain(dev, nu):
     assert (sck.SYMCON_FWD.launches, sck.SYMCON_BWD.launches) == (before[0] + 1, before[1] + 1)
 
 
-@pytest.mark.parametrize("h_ls,k", [((0,), 8), ((0, 1), 40)])
-def test_tp_kernels_match_plain_with_hub_and_padding(dev, h_ls, k):
-    rng = np.random.default_rng(len(h_ls))
-    spec = TPSpec(sh_spec(3), lspec(*h_ls), lspec(0, 1, 2, 3))
-    n_atoms, E = 20, 160
-    receivers = np.concatenate([np.full(40, 3), rng.integers(0, n_atoms, E - 40)])
-    mask = rng.random(E) < 0.9
-    blk = block_edges(receivers.astype(np.int32), mask, n_atoms, block_n=8, block_e=16)
-    assert not blk.valid[-16:].any()
-    E_p, T = blk.perm.shape[0], blk.n_atom_tiles
-    local = torch.from_numpy(blk.local_rcv).to(dev)
-    valid = torch.from_numpy(blk.valid).to(dev)
-    Y = _randn(rng, dev, E_p, 16)
-    h = _randn(rng, dev, E_p, spec.h_spec.dim, k)
-    R = _randn(rng, dev, E_p, spec.n_paths, k)
-    G = _randn(rng, dev, T * 8, 16, k)
-    kw = dict(n_tiles=T, block_n=8)
-    out = tpk.tp_scatter(Y, h, R, local, valid, spec, **kw)
-    _close([out], [tpk.tp_scatter_plain(Y, h, R, local, valid, spec, **kw)])
-    assert float(out[-8:].abs().max()) == 0.0  # padding tile stays exactly zero
-    got = tpk.tp_gather_bwd(G, Y, h, R, local, valid, spec, **kw)
-    _close(got, tpk.tp_gather_bwd_plain(G, Y, h, R, local, valid, spec, **kw))
+def _paper_blocking(rng, n_atoms=64):
+    """The paper's 32-atom x 128-slot tiles over dataset-like degrees plus a
+    hub atom of degree 300 (three tiles sharing a base); a padding tile
+    follows."""
+    deg = rng.integers(8, 40, n_atoms)
+    deg[5] = 300
+    receivers = np.repeat(np.arange(n_atoms), deg).astype(np.int32)
+    rng.shuffle(receivers)
+    mask = np.ones(receivers.size, bool)
+    n_tiles = static_n_tiles(receivers.size, n_atoms, 32, 128) + 1
+    return block_edges(receivers, mask, n_atoms, block_n=32, block_e=128, n_tiles=n_tiles)
+
+
+def _tp_case(name):
+    """(spec, k, blocking arrays (local, valid, n_tiles, block_n, epb))."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name in ("h0_k8", "h01_k40", "lmax4_out01234_k40"):
+        h_ls, k = ((0,), 8) if name == "h0_k8" else ((0, 1), 40)
+        if name == "lmax4_out01234_k40":
+            # d_sh = d_out = 25: the forward's dynamic shared memory passes
+            # 48 KB (2 KB per output component), so the entry point raises
+            # the kernel's limit before the launch
+            spec = TPSpec(sh_spec(4), lspec(*h_ls), lspec(0, 1, 2, 3, 4))
+            assert tpk.spec_dims(spec) == (25, 4, 13, 25)
+        else:
+            spec = TPSpec(sh_spec(3), lspec(*h_ls), lspec(0, 1, 2, 3))
+        n_atoms, E = 20, 160
+        receivers = np.concatenate([np.full(40, 3), rng.integers(0, n_atoms, E - 40)])
+        mask = rng.random(E) < 0.9
+        blk = block_edges(receivers.astype(np.int32), mask, n_atoms, block_n=8, block_e=16)
+        local, valid = blk.local_rcv.copy(), blk.valid.copy()
+    else:
+        spec, k = CONFIG.tp_spec_at(1), 128
+        blk = _paper_blocking(rng)
+        local, valid = blk.local_rcv.copy(), blk.valid.copy()
+        epb = blk.epb
+        if name == "paper_layer1_straddle":
+            # receivers of 10 slots each from the start of tile 0: runs cross
+            # the forward's 32-slot ballot groups (slots 30..39) and the
+            # 16-slot segments of a full tile (slots 10..19)
+            local[:epb] = np.minimum(np.arange(epb) // 10, 31)
+            valid[:epb] = True
+            assert local[31] == local[32] == 3 and local[15] == local[16] == 1
+        elif name == "paper_layer1_masked_tile":
+            valid[epb:2 * epb] = False  # a tile of real receivers, all masked
+        elif name == "paper_layer1_unsorted":
+            perm = rng.permutation(epb)  # a receiver's slots come back later
+            local[:epb], valid[:epb] = local[:epb][perm], valid[:epb][perm]
+    assert not valid[-blk.epb:].any(), "expected a padding tile"
+    return spec, k, local, valid, blk.n_atom_tiles, blk.block_n, blk.epb
+
+
+TP_CASES = ["h0_k8", "h01_k40", "lmax4_out01234_k40", "paper_layer1_k128",
+            "paper_layer1_straddle", "paper_layer1_masked_tile", "paper_layer1_unsorted"]
+
+
+def _tp_operands(dev, name):
+    spec, k, local, valid, T, bn, epb = _tp_case(name)
+    rng = np.random.default_rng(len(name))
+    E_p = T * epb
+    ops = dict(
+        Y=_randn(rng, dev, E_p, spec.y_spec.dim),
+        h=_randn(rng, dev, E_p, spec.h_spec.dim, k),
+        R=_randn(rng, dev, E_p, spec.n_paths, k),
+        G=_randn(rng, dev, T * bn, spec.out_spec.dim, k),
+        local=torch.from_numpy(local.astype(np.int32)).to(dev),
+        valid=torch.from_numpy(valid).to(dev),
+    )
+    return spec, ops, dict(n_tiles=T, block_n=bn), valid, epb
+
+
+@pytest.mark.parametrize("name", TP_CASES)
+def test_tp_kernels_match_plain_with_hub_and_padding(dev, name):
+    spec, o, kw, valid, epb = _tp_operands(dev, name)
+    args = (o["Y"], o["h"], o["R"], o["local"], o["valid"], spec)
+    before = tpk.TP_SCATTER_FWD.launches, tpk.TP_GATHER_BWD.launches
+    out = tpk.tp_scatter(*args, **kw)
+    _close([out], [tpk.tp_scatter_plain(*args, **kw)])
+    bn = kw["block_n"]
+    tiles = out.reshape(kw["n_tiles"], bn, *out.shape[1:])
+    for t in np.nonzero(~valid.reshape(-1, epb).any(axis=1))[0]:
+        assert float(tiles[t].abs().max()) == 0.0  # fully masked tiles: exact zeros
+    got = tpk.tp_gather_bwd(o["G"], *args, **kw)
+    _close(got, tpk.tp_gather_bwd_plain(o["G"], *args, **kw))
     for g in got:
-        assert float(g[~valid].abs().max()) == 0.0  # masked slots: exact zeros
+        assert float(g[torch.from_numpy(~valid).to(dev)].abs().max()) == 0.0  # masked slots
+    torch.cuda.synchronize()
+    assert (tpk.TP_SCATTER_FWD.launches, tpk.TP_GATHER_BWD.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_tp_kernels_are_bitwise_deterministic(dev):
+    """Two launches on the same inputs give bit-identical outputs: no float
+    atomics, fixed summation orders."""
+    spec, o, kw, _, _ = _tp_operands(dev, "paper_layer1_k128")
+    args = (o["Y"], o["h"], o["R"], o["local"], o["valid"], spec)
+    assert torch.equal(tpk.tp_scatter(*args, **kw), tpk.tp_scatter(*args, **kw))
+    for a, b in zip(tpk.tp_gather_bwd(o["G"], *args, **kw),
+                    tpk.tp_gather_bwd(o["G"], *args, **kw)):
+        assert torch.equal(a, b)
 
 
 def test_wrappers_refuse_cpu_cuda_mix(dev):

@@ -7,23 +7,31 @@ Run from the repository root (the script finds ``src/repro_torch`` next to
 itself).  Phases, none of them caught, so any failure exits nonzero:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, and per tensor-product spec for the interaction kernels, all
-   started together) and print ptxas's register, stack and spill report
-   per kernel; the two interaction kernels must have no stack frame and no
-   spills;
+   source and spec, with the spec's generated header: one build of the
+   symmetric-contraction source, one of the interaction source per
+   layer's tensor-product spec, all started together) and print ptxas's
+   register, stack and spill report per kernel; every kernel must have no
+   stack frame and no spills;
 2. hold each of the four kernels against its plain PyTorch version on the
    card, at the shapes the 256-atom bucket of the paper's model gives it
    (both interaction layers; receivers with a hub atom spanning several
    tiles and fully masked padding tiles), check that two launches of each
    kernel give bit-identical outputs, and time both versions by CUDA events
    per call (``ms`` and ``plain_ms``, the wrapper's host work included);
+   time the dense-U einsum baseline ``symcon_ref`` on the symmetric
+   contraction's inputs (``library_ms``: its einsums, and its
+   ``torch.autograd.grad`` for the backward) after checking that it
+   computes what the kernels compute; run both symmetric-contraction
+   kernels, checked the same way, at the training capacity of 3,072 atoms
+   too;
 3. start a full-width ``GraphServer`` (the paper's §5.2 widths, random
    weights from a seed, buckets of 64 and 256 atoms, 2 workers) and serve
    48 molecules of a skewed mix; every kernel's launch count over that run
    must be above zero; then serve them once more under ``torch.profiler``
    for the card's busy and idle share, and time each kernel's own device
    time per launch on phase 2's inputs (``device_ms``, ``torch.profiler``),
-   with its share of its bound per layer (``bound_ms / device_ms``);
+   with its share of its bound per layer (``bound_ms / device_ms``), and
+   at 3,072 atoms with the L2 cache flushed before each launch;
 4. serve a few of the same molecules with the same parameters on the CPU
    (plain versions) and compare energies and forces;
 5. report: the card's name and power limit, a serving line, one JSON line
@@ -48,6 +56,7 @@ import torch  # noqa: E402
 
 from repro_torch.configs.mace_cfm import CONFIG  # noqa: E402
 from repro_torch.core.mace import init_mace  # noqa: E402
+from repro_torch.core.symmetric_contraction import symcon_ref  # noqa: E402
 from repro_torch.data.blocking import block_edges  # noqa: E402
 from repro_torch.data.molecules import SyntheticCFMDataset  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
@@ -69,6 +78,16 @@ SEED = 0
 CAPACITIES = (64, 256)
 EDGE_FACTOR = 48
 N_REQUESTS = 48
+TRAIN_ATOMS = 3072          # examples/train_mace_cfm.py's capacity on real hardware
+# zeroed before each launch timed at TRAIN_ATOMS, five times the card's 50 MB
+# L2: the kernel reads its inputs from device memory and, as after an op
+# that wrote its output, writes back the dirty lines it evicts (the
+# slowest of the cache states compared in PERF.md)
+L2_FLUSH_BYTES = 256 << 20
+# the profiler does not always record every launch (it has missed 1 of 20):
+# a device time counts only when it averages over at least this share of
+# the launches made, and the JSON line carries both counts
+MIN_RECORDED = 0.9
 
 KERNELS = {
     "symcon_fwd": dict(kernel=sck.SYMCON_FWD, symbol="symcon_fwd_kernel",
@@ -115,22 +134,33 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, symbol: str, reps: int) -> float:
-    """Mean device milliseconds per launch of the kernel ``symbol`` over
-    ``reps`` calls of ``fn``, from ``torch.profiler``, after a warm-up: the
-    kernel's own time, without the host work around the launch."""
+def _device_ms(fn, symbol: str, reps: int, before=None):
+    """``(ms, recorded)``: mean device milliseconds per launch of the kernel
+    ``symbol`` over the ``recorded`` launches the profiler records in
+    ``reps`` calls of ``fn``, after a warm-up: the kernel's own time,
+    without the host work around the launch.  ``before``, if given, runs
+    before each call (an L2 flush).  A run that records fewer than
+    ``MIN_RECORDED`` of the launches is measured again, twice at most, and
+    then fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages() if symbol in e.key)
-    if us == 0:
-        raise AssertionError(f"the profiler saw no device time of {symbol}")
-    return us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+        mine = [e for e in prof.key_averages() if symbol in e.key]
+        us, seen = sum(map(_device_us, mine)), sum(e.count for e in mine)
+        if seen != reps:
+            print(f"profiler: {seen} launches of {symbol} recorded of {reps}", flush=True)
+        if us > 0 and seen >= MIN_RECORDED * reps:
+            return us / seen / 1e3, seen
+    raise AssertionError(f"the profiler recorded {seen} launches of {symbol} of {reps}, "
+                         f"device time {us} us")
 
 
 def _bound_ms(n_bytes: float, n_ops: float):
@@ -153,6 +183,47 @@ def _compare(got, want):
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version, at the main path's shapes
 # ---------------------------------------------------------------------------
+
+
+def _symcon_work(spec, N, k):
+    """(bytes, flops) of the forward and of the backward over N atoms and k
+    channels: each input read once, each output written once."""
+    groups = sck._group_entries(spec, sck.build_symcon_tables(spec))[0]
+    d_in, P, d_out = spec.in_spec.dim, sck.p_total_of(spec), spec.out_spec.dim
+    fwd_ops = sum(n * (nu + 1) + 2 for (_, _, nu, n, _) in groups) * N * k
+    bwd_ops = sum(n * (nu + 1 + nu * (nu + 2)) + 3 for (_, _, nu, n, _) in groups) * N * k
+    return ((4 * N * k * (d_in + P + d_out), fwd_ops),
+            (4 * N * k * (2 * (d_in + P) + d_out), bwd_ops))
+
+
+def _symcon_library(A_t, W_t, G_t, spec):
+    """The dense-U einsum baseline ``symcon_ref`` on the kernels' inputs:
+    species ``arange(N)`` and per-atom weights sliced from ``W_t``, so its
+    weight gather is an identity and it computes the kernels' B.  Returns
+    (forward, backward) pairs of (call, its output in kernel layout): the
+    forward runs the einsums, the backward ``torch.autograd.grad`` of their
+    output with respect to (A, W) with G."""
+    species = torch.arange(A_t.shape[0], device=A_t.device)
+    A = A_t.transpose(1, 2).contiguous().requires_grad_(True)
+    weights, off = {}, 0
+    for (L, nu) in spec.terms():
+        n = spec.n_paths(L, nu)
+        weights[f"w_L{L}_nu{nu}"] = (
+            W_t[:, off:off + n].transpose(1, 2).contiguous().requires_grad_(True))
+        off += n
+    G = G_t.transpose(1, 2).contiguous()
+    leaves = [A, *weights.values()]
+    B = symcon_ref(A, species, weights, spec)
+
+    def fwd():
+        with torch.no_grad():
+            return symcon_ref(A, species, weights, spec)
+
+    def bwd():
+        return torch.autograd.grad(B, leaves, G, retain_graph=True)
+
+    return ((fwd, lambda b: b.transpose(1, 2)),
+            (bwd, lambda g: (g[0].transpose(1, 2), torch.cat(g[1:], -1).transpose(1, 2))))
 
 
 def _bucket_blocking(rng, bucket):
@@ -193,9 +264,7 @@ def check_kernels(dev):
     spec = CONFIG.symcon_spec()
     N, d_in, d_out = bucket.max_nodes, spec.in_spec.dim, spec.out_spec.dim
     P = sck.p_total_of(spec)
-    groups = sck._group_entries(spec, sck.build_symcon_tables(spec))[0]
-    fwd_ops = sum(n * (nu + 1) + 2 for (_, _, nu, n, _) in groups) * N * k
-    bwd_ops = sum(n * (nu + 1 + nu * (nu + 2)) + 3 for (_, _, nu, n, _) in groups) * N * k
+    (fwd_bytes, fwd_ops), (bwd_bytes, bwd_ops) = _symcon_work(spec, N, k)
     kw = dict(n_tiles=T, block_n=bn)
 
     def layer_calls(layer):
@@ -207,15 +276,16 @@ def check_kernels(dev):
         Y_b, h_b, R_b = randn(E_p, d_sh), randn(E_p, d_h, k), randn(E_p, n_paths, k)
         G_a = randn(T * bn, d_a, k)
         slot_bytes = 4 * n_valid * (d_sh + (d_h + n_paths) * k) + 5 * E_p
+        lib_fwd, lib_bwd = _symcon_library(A_t, W_t, G_t, spec)
         return {
             "symcon_fwd": dict(
                 run=lambda: sck.symcon_fwd(A_t, W_t, spec),
                 plain=lambda: sck.symcon_plain(A_t, W_t, spec),
-                bytes=4 * N * k * (d_in + P + d_out), ops=fwd_ops),
+                library=lib_fwd, bytes=fwd_bytes, ops=fwd_ops),
             "symcon_bwd": dict(
                 run=lambda: sck.symcon_bwd(A_t, W_t, G_t, spec),
                 plain=lambda: sck.symcon_bwd_plain(A_t, W_t, G_t, spec),
-                bytes=4 * N * k * (2 * (d_in + P) + d_out), ops=bwd_ops),
+                library=lib_bwd, bytes=bwd_bytes, ops=bwd_ops),
             "tp_scatter_fwd": dict(
                 run=lambda: tpk.tp_scatter(Y_b, h_b, R_b, local, valid, tp, **kw),
                 plain=lambda: tpk.tp_scatter_plain(Y_b, h_b, R_b, local, valid, tp, **kw),
@@ -236,62 +306,117 @@ def check_kernels(dev):
 
     results = {}
     for name, cs in calls.items():
-        rows = []
-        for c in cs:
-            got, want = c["run"](), c["plain"]()
-            torch.cuda.synchronize()
-            err, scale, ok = _compare(got, want)
-            again = c["run"]()  # every kernel sums in a fixed order
-            torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(
-                got if isinstance(got, tuple) else (got,),
-                again if isinstance(again, tuple) else (again,)))
-            print(f"kernel {name} layer {c['layer']}: two launches bit-identical={same}",
-                  flush=True)
-            if not same:
-                raise AssertionError(f"kernel {name} layer {c['layer']} is not "
-                                     "deterministic")
-            ms = _time_ms(c["run"], reps=20)
-            plain_ms = _time_ms(c["plain"], reps=3)
-            bound, bound_by = _bound_ms(c["bytes"], c["ops"])
-            print(f"kernel {name} layer {c['layer']}: max_abs_err={err:.3e} "
-                  f"max_rel_err={err / max(scale, 1e-30):.3e} "
-                  f"tol={KERNEL_TOL:g}*max(1,{scale:.3g}) ok={ok} "
-                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"bound_ms={bound:.4f} ({bound_by})", flush=True)
-            if not ok:
-                raise AssertionError(f"kernel {name} layer {c['layer']} disagrees "
-                                     f"with its plain version: {err:.3e}")
-            rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound,
-                             bytes=c["bytes"], ops=c["ops"], run=c["run"]))
+        rows = [_check_call(name, f"layer {c['layer']}", c) for c in cs]
         n_bytes = sum(r["bytes"] for r in rows)
         n_ops = sum(r["ops"] for r in rows)
         bound, bound_by = _bound_ms(n_bytes, n_ops)
+        library = [r["library_ms"] for r in rows]
         results[name] = dict(
             rows=rows, max_abs_err=max(r["err"] for r in rows),
             ms=sum(r["ms"] for r in rows),
             plain_ms=sum(r["plain_ms"] for r in rows),
             bound_ms=bound, bound_by=bound_by,
+            library_ms=None if None in library else sum(library),
         )
     return results
 
 
-def time_kernels(results) -> None:
+def _check_call(name, where, c):
+    """One kernel call against its plain version (and against the library
+    baseline, where the call has one), two launches bit-identical, and the
+    CUDA-event times per call of all three."""
+    got, want = c["run"](), c["plain"]()
+    torch.cuda.synchronize()
+    err, scale, ok = _compare(got, want)
+    again = c["run"]()  # every kernel sums in a fixed order
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(
+        got if isinstance(got, tuple) else (got,),
+        again if isinstance(again, tuple) else (again,)))
+    print(f"kernel {name} {where}: two launches bit-identical={same}", flush=True)
+    if not same:
+        raise AssertionError(f"kernel {name} {where} is not deterministic")
+    ms = _time_ms(c["run"], reps=20)
+    plain_ms = _time_ms(c["plain"], reps=3)
+    bound, bound_by = _bound_ms(c["bytes"], c["ops"])
+    library_ms, library = None, ""
+    if "library" in c:
+        call, layout = c["library"]
+        lib_err, _, lib_ok = _compare(got, layout(call()))
+        if not lib_ok:
+            raise AssertionError(f"symcon_ref disagrees with kernel {name} {where}: "
+                                 f"{lib_err:.3e}")
+        library_ms = _time_ms(call, reps=5)
+        library = f" library_ms={library_ms:.4f} library_abs_err={lib_err:.3e}"
+    print(f"kernel {name} {where}: max_abs_err={err:.3e} "
+          f"max_rel_err={err / max(scale, 1e-30):.3e} "
+          f"tol={KERNEL_TOL:g}*max(1,{scale:.3g}) ok={ok} "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound:.4f} ({bound_by}){library}", flush=True)
+    if not ok:
+        raise AssertionError(f"kernel {name} {where} disagrees with its plain "
+                             f"version: {err:.3e}")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound, library_ms=library_ms,
+                bytes=c["bytes"], ops=c["ops"], run=c["run"])
+
+
+def check_training_size(dev):
+    """Both symmetric-contraction kernels at the training capacity (3,072
+    atoms, the paper's spec and width), checked and timed as in
+    ``check_kernels``: at this size launch latency no longer hides the
+    bound."""
+    rng = np.random.default_rng(SEED + 1)
+    spec, N, k = CONFIG.symcon_spec(), TRAIN_ATOMS, CONFIG.channels
+    A_t, W_t, G_t = (
+        torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+        for shape in ((N, spec.in_spec.dim, k), (N, sck.p_total_of(spec), k),
+                      (N, spec.out_spec.dim, k)))
+    (fwd_bytes, fwd_ops), (bwd_bytes, bwd_ops) = _symcon_work(spec, N, k)
+    lib_fwd, lib_bwd = _symcon_library(A_t, W_t, G_t, spec)
+    calls = {
+        "symcon_fwd": dict(
+            run=lambda: sck.symcon_fwd(A_t, W_t, spec),
+            plain=lambda: sck.symcon_plain(A_t, W_t, spec),
+            library=lib_fwd, bytes=fwd_bytes, ops=fwd_ops),
+        "symcon_bwd": dict(
+            run=lambda: sck.symcon_bwd(A_t, W_t, G_t, spec),
+            plain=lambda: sck.symcon_bwd_plain(A_t, W_t, G_t, spec),
+            library=lib_bwd, bytes=bwd_bytes, ops=bwd_ops),
+    }
+    return {name: _check_call(name, f"N={N} k={k}", c) for name, c in calls.items()}
+
+
+def time_kernels(results, training) -> None:
     """Each kernel's own device time per launch (``torch.profiler``) on
-    phase 2's inputs, with its share of the bound per layer.  Run after the
-    serving measurements: once the profiler has run in a process, later
-    launches in it were slower (serving runs in PERF.md)."""
+    phase 2's inputs, with its share of the bound per layer, and the
+    symmetric-contraction kernels' at the training capacity, each launch
+    finding its inputs outside the L2 cache.  Run after the serving
+    measurements: once the profiler has run in a process, later launches in
+    it were slower (serving runs in PERF.md)."""
+    reps = 20
     for name, res in results.items():
-        per_layer = []
+        per_layer, recorded = [], 0
         for layer, r in enumerate(res["rows"]):
-            ms = _device_ms(r["run"], KERNELS[name]["symbol"], reps=20)
+            ms, seen = _device_ms(r["run"], KERNELS[name]["symbol"], reps)
             print(f"kernel {name} layer {layer}: device_ms={ms:.4f} "
-                  f"bound_ms={r['bound']:.4f} share_of_bound={r['bound'] / ms:.3f}",
-                  flush=True)
+                  f"bound_ms={r['bound']:.4f} share_of_bound={r['bound'] / ms:.3f} "
+                  f"launches_recorded={seen}/{reps}", flush=True)
             per_layer.append(ms)
+            recorded += seen
         res.update(device_ms=sum(per_layer), per_layer_device_ms=per_layer,
                    per_layer_share_of_bound=[r["bound"] / ms
-                                             for r, ms in zip(res["rows"], per_layer)])
+                                             for r, ms in zip(res["rows"], per_layer)],
+                   device_launches_recorded=recorded,
+                   device_launches_made=reps * len(per_layer))
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    for name, r in training.items():
+        ms, seen = _device_ms(r["run"], KERNELS[name]["symbol"], reps,
+                              before=lambda: flush.zero_())
+        print(f"kernel {name} N={TRAIN_ATOMS} k={CONFIG.channels}: "
+              f"max_abs_err={r['err']:.3e} device_ms={ms:.4f} "
+              f"bound_ms={r['bound']:.4f} share_of_bound={r['bound'] / ms:.3f} "
+              f"launches_recorded={seen}/{reps} "
+              f"ms={r['ms']:.4f} library_ms={r['library_ms']:.4f}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -414,16 +539,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     specs = [CONFIG.tp_spec_at(layer) for layer in range(CONFIG.n_interactions)]
-    cuda_lib.build([("symmetric_contraction.cu", None), *tpk.build_units(specs)])
+    cuda_lib.build([*sck.build_units([CONFIG.symcon_spec()]), *tpk.build_units(specs)])
     print(f"kernels built in {time.perf_counter() - t0:.1f}s", flush=True)
     for library, log in cuda_lib.build_logs.items():
         for kernel, report in _ptxas_report(log).items():
             print(f"ptxas {library} {kernel}: {report}")
             stack_or_spill = re.findall(r"(\d+) bytes (?:stack frame|spill)", report)
-            if library.startswith("channelwise_tp") and any(int(n) for n in stack_or_spill):
+            if any(int(n) for n in stack_or_spill):
                 raise AssertionError(f"{kernel} uses a stack frame or spills: {report}")
 
     kernel_results = check_kernels(dev)
+    training_results = check_training_size(dev)
 
     params = init_mace(CONFIG, torch.Generator().manual_seed(SEED))
     mols = skewed_requests()
@@ -437,7 +563,7 @@ def main() -> int:
         raise AssertionError(f"the serving run launched no {missing}")
 
     profile_serving(params, mols)
-    time_kernels(kernel_results)
+    time_kernels(kernel_results, training_results)
     compare_with_cpu(params, mols, results, buckets)
 
     print(card)
@@ -446,10 +572,13 @@ def main() -> int:
              launches=launches[name], max_abs_err=kernel_results[name]["max_abs_err"],
              ms=kernel_results[name]["ms"], plain_ms=kernel_results[name]["plain_ms"],
              bound_ms=kernel_results[name]["bound_ms"],
-             bound_by=kernel_results[name]["bound_by"], library_ms=None,
+             bound_by=kernel_results[name]["bound_by"],
+             library_ms=kernel_results[name]["library_ms"],
              device_ms=kernel_results[name]["device_ms"],
              per_layer_device_ms=kernel_results[name]["per_layer_device_ms"],
-             per_layer_share_of_bound=kernel_results[name]["per_layer_share_of_bound"])
+             per_layer_share_of_bound=kernel_results[name]["per_layer_share_of_bound"],
+             device_launches_recorded=kernel_results[name]["device_launches_recorded"],
+             device_launches_made=kernel_results[name]["device_launches_made"])
         for name, spec in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,10 @@ A_{i,k,lm} to correlation order nu, producing higher-body-order features
 
 with the generalized Clebsch-Gordan U tensors of :func:`repro_torch.core.cg.
 u_tensor`.  Port of the spec, table and init half of the JAX package's
-``core/symmetric_contraction.py``; the kernels live in ``repro_torch.kernels.
-symmetric_contraction`` and the ``symcon_ref``/``symcon_fused`` twins wait
-for the training slice.
+``core/symmetric_contraction.py``, and of its ``symcon_ref``, the dense-U
+einsum baseline; the kernels live in ``repro_torch.kernels.
+symmetric_contraction`` and the ``symcon_fused`` twin waits for the training
+slice.
 """
 from __future__ import annotations
 
@@ -61,6 +62,38 @@ def init_symcon_weights(
             shp[-1]
         )
     return params
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_u(ls_in: Tuple[int, ...], L: int, nu: int, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(u_tensor(ls_in, L, nu), dtype=dtype, device=device)
+
+
+def symcon_ref(
+    A: torch.Tensor,            # [N, k, dim_in]
+    species: torch.Tensor,      # [N] int
+    weights: Dict[str, torch.Tensor],
+    spec: SymConSpec,
+) -> torch.Tensor:
+    """Dense-U baseline (the e3nn-style contraction the paper measures its
+    kernel against): one ``torch.einsum`` per (L, nu) over the dense U
+    tensor, kept on A's device once per (L, nu).  Returns B: [N, k, dim_out]."""
+    N, k, _ = A.shape
+    out = A.new_zeros((N, k, spec.out_spec.dim))
+    for (L, nu) in spec.terms():
+        U = _dense_u(tuple(spec.in_spec.ls), L, nu, A.dtype, A.device)
+        W = weights[f"w_L{L}_nu{nu}"][species]  # [N, k, n_paths]
+        if nu == 1:
+            bl = torch.einsum("aMe,nka,nke->nkM", U, A, W)
+        elif nu == 2:
+            bl = torch.einsum("abMe,nka,nkb,nke->nkM", U, A, A, W)
+        elif nu == 3:
+            bl = torch.einsum("abcMe,nka,nkb,nkc,nke->nkM", U, A, A, A, W)
+        else:
+            raise NotImplementedError(nu)
+        out[:, :, spec.out_spec.slice_for(L)] += bl
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,11 +33,10 @@ from __future__ import annotations
 import functools
 from typing import List, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.core.channelwise_tp import TPSpec, build_tp_tables
-from repro_torch.kernels.cuda_lib import INT, PTR, CudaKernel
+from repro_torch.kernels.cuda_lib import INT, PTR, CudaKernel, f32_literal
 
 # Limits of csrc/channelwise_tp.cu: a slot's Y is spread from one lane per
 # component (d_sh <= 32, and d_h, d_out alike; the paper's widths, 16, fit
@@ -70,11 +69,6 @@ def spec_dims(spec: TPSpec) -> Tuple[int, int, int, int]:
     return spec.y_spec.dim, spec.h_spec.dim, spec.n_paths, spec.out_spec.dim
 
 
-def _f32(v: float) -> str:
-    """``v`` rounded to float32, as an exact C++ hex literal."""
-    return float(np.float32(v)).hex() + "f"
-
-
 def _grouped_sums(spec: TPSpec, key: str, target: str, term) -> List[str]:
     """``target[g] = / += term`` over the CG entries whose ``key`` is g, in
     table order, for every g; a group without entries is set to zero."""
@@ -89,7 +83,7 @@ def _grouped_sums(spec: TPSpec, key: str, target: str, term) -> List[str]:
             lines.append(f"  {target}[{g}] = 0.f;")
         for j, (m1, m2, m3, p, val) in enumerate(group):
             op = "=" if j == 0 else "+="
-            lines.append(f"  {target}[{g}] {op} {term(m1, m2, m3, p, _f32(val))};")
+            lines.append(f"  {target}[{g}] {op} {term(m1, m2, m3, p, f32_literal(val))};")
     return lines
 
 

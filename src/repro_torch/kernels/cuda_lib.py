@@ -2,9 +2,9 @@
 
 Each source under ``repro_torch/csrc`` is compiled by ``nvcc`` into a shared
 library with a plain C interface and loaded through ``ctypes``: no PyTorch
-headers, so a build takes seconds.  A source may be built with a generated
+headers, so a build takes seconds.  Each source is built with a generated
 header (included as ``KERNEL_HEADER``) that fixes compile-time constants,
-such as the CG entries of one tensor-product spec; each (source, header)
+such as the CG entries of one spec; each (source, header)
 pair is its own library.  Libraries are built at first use into ``build/kernels/`` at the
 repository root, named by a hash of the source, the header and the flags,
 so an edited source or a new header is rebuilt and an unchanged one is
@@ -24,8 +24,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -35,8 +36,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# (source under csrc/, generated header text or None)
-Unit = Tuple[str, Optional[str]]
+# (source under csrc/, generated header text)
+Unit = Tuple[str, str]
 
 _lock = threading.Lock()
 _libs: Dict[Unit, ctypes.CDLL] = {}
@@ -57,10 +58,10 @@ def _nvcc() -> str:
     )
 
 
-def library_path(source: str, header: Optional[str] = None) -> Path:
+def library_path(source: str, header: str) -> Path:
     """Where a unit's library lives, keyed by source, header and flags."""
     digest = hashlib.sha256(
-        (CSRC / source).read_bytes() + (header or "").encode()
+        (CSRC / source).read_bytes() + header.encode()
         + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
@@ -78,14 +79,12 @@ def build(units: Iterable[Unit]) -> None:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-        if header is not None:  # the source includes it as KERNEL_HEADER
-            hdr = out.with_suffix(".cuh")
-            hdr_tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.cuh")
-            hdr_tmp.write_text(header)
-            os.replace(hdr_tmp, hdr)  # a concurrent build never reads half a header
-            cmd.append(f'-DKERNEL_HEADER="{hdr}"')
-        cmd.append(str(CSRC / source))
+        hdr = out.with_suffix(".cuh")
+        hdr_tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.cuh")
+        hdr_tmp.write_text(header)
+        os.replace(hdr_tmp, hdr)  # a concurrent build never reads half a header
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), f'-DKERNEL_HEADER="{hdr}"',
+               str(CSRC / source)]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -103,7 +102,7 @@ def build(units: Iterable[Unit]) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def load(source: str, header: Optional[str] = None) -> ctypes.CDLL:
+def load(source: str, header: str) -> ctypes.CDLL:
     """The loaded library of a unit, built first if needed."""
     with _lock:
         lib = _libs.get((source, header))
@@ -124,10 +123,10 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
-        self._fns: Dict[Optional[str], object] = {}
+        self._fns: Dict[str, object] = {}
         self._count_lock = threading.Lock()
 
-    def _bind(self, header: Optional[str]):
+    def _bind(self, header: str):
         fn = self._fns.get(header)
         if fn is None:
             fn = getattr(load(self.source, header), self.symbol)
@@ -136,7 +135,7 @@ class CudaKernel:
             self._fns[header] = fn
         return fn
 
-    def __call__(self, *args, header: Optional[str] = None) -> None:
+    def __call__(self, *args, header: str) -> None:
         fn = self._bind(header)
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
@@ -150,3 +149,9 @@ class CudaKernel:
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+
+
+def f32_literal(v: float) -> str:
+    """``v`` rounded to float32, as an exact C++ hex literal (for generated
+    headers)."""
+    return float(np.float32(v)).hex() + "f"

@@ -3,8 +3,12 @@
 The CUDA kernels are ``csrc/symmetric_contraction.cu`` (``symcon_fwd``,
 ``symcon_bwd``); they replace the Pallas TPU kernels ``_symcon_kernel`` and
 ``_symcon_bwd_kernel`` of the JAX package's
-``kernels/symmetric_contraction/kernel.py``.  Beside each is its plain
-PyTorch version over the same CG groups:
+``kernels/symmetric_contraction/kernel.py``.  Like the TPU kernels, which
+unroll the CG groups at trace time, the source is built once per spec with
+a generated header (:func:`spec_header`) that unrolls the groups of
+:func:`_group_entries` into straight-line scalar sums over one (atom,
+channel)'s operands in registers.  Beside each kernel is its plain PyTorch
+version over the same CG groups:
 
 * :func:`symcon_plain` — port of the JAX ``symcon_xla_raw``;
 * :func:`symcon_bwd_plain` — an explicit loop over the groups, the product
@@ -21,7 +25,6 @@ from __future__ import annotations
 import functools
 from typing import Dict, List, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.core.symmetric_contraction import (
@@ -29,15 +32,13 @@ from repro_torch.core.symmetric_contraction import (
     SymConTables,
     build_symcon_tables,
 )
-from repro_torch.kernels.cuda_lib import INT, PTR, CudaKernel
-
-MAX_D_IN = 32  # csrc/symmetric_contraction.cu's per-thread A column
+from repro_torch.kernels.cuda_lib import INT, PTR, CudaKernel, f32_literal
 
 SYMCON_FWD = CudaKernel(
-    "symmetric_contraction.cu", "symcon_fwd", [PTR] * 6 + [INT] * 6
+    "symmetric_contraction.cu", "symcon_fwd", [PTR] * 3 + [INT] * 2
 )
 SYMCON_BWD = CudaKernel(
-    "symmetric_contraction.cu", "symcon_bwd", [PTR] * 8 + [INT] * 6
+    "symmetric_contraction.cu", "symcon_bwd", [PTR] * 5 + [INT] * 2
 )
 
 
@@ -67,34 +68,88 @@ def _group_entries(
 
 
 @functools.lru_cache(maxsize=None)
-def _host_tables(spec: SymConSpec):
-    groups, p_total = _group_entries(spec, build_symcon_tables(spec))
-    if any(nu > 3 for (_, _, nu, _, _) in groups):
-        raise NotImplementedError("the CUDA symcon kernels take nu <= 3")
-    rows, idx, val = [], [], []
-    for (w_idx, out_idx, nu, _, ents) in groups:
-        rows.append((w_idx, out_idx, nu, len(idx), len(idx) + len(ents)))
-        for (ix, v) in ents:
-            idx.append(tuple(ix) + (0,) * (3 - len(ix)))
-            val.append(v)
-    return (
-        np.asarray(rows, np.int32).reshape(-1, 5),
-        np.asarray(idx, np.int32).reshape(-1, 3),
-        np.asarray(val, np.float32),
-        p_total,
-    )
+def p_total_of(spec: SymConSpec) -> int:
+    return _group_entries(spec, build_symcon_tables(spec))[1]
 
 
 @functools.lru_cache(maxsize=None)
-def device_tables(spec: SymConSpec, device: torch.device):
-    """(groups [G, 5], ent_idx [nnz, 3], ent_val [nnz]) on ``device``,
-    built once per spec and device."""
-    rows, idx, val, _ = _host_tables(spec)
-    return tuple(torch.as_tensor(a, device=device) for a in (rows, idx, val))
+def spec_header(spec: SymConSpec) -> str:
+    """The header ``csrc/symmetric_contraction.cu`` is built with for
+    ``spec``: its dimensions and the groups of :func:`_group_entries`, in
+    table order, unrolled into straight-line scalar statements over one
+    (atom, channel)'s operands in registers.
+
+    ``symcon_contract(a, w, b)``, the forward: per group
+    ``s = / += Π a[m_x] * val`` over its entries, then
+    ``b[out] = / += w[eta] * s``.  ``symcon_transpose(a, w, g, da, dw)``,
+    the backward: per group the same ``s``, ``dw[eta] = / += g[out] * s`` and
+    ``const float gwJ = g[out] * w[eta]``; then, row by row of A, ``da[m] =
+    / +=`` the product-rule terms ``gwJ * (Π_{y != x} a[m_y] * val)`` of the
+    entries that hold m, in (group, entry, x) order.  A row that no group
+    reaches is set to ``0.f``, so every output register is written by
+    compile-time code."""
+    groups, p_total = _group_entries(spec, build_symcon_tables(spec))
+    if any(nu > 3 for (_, _, nu, _, _) in groups):
+        raise NotImplementedError("the CUDA symcon kernels take nu <= 3")
+    d_in, d_out = spec.in_spec.dim, spec.out_spec.dim
+
+    def sums(ents):
+        return [f"  s {'=' if j == 0 else '+='} "
+                f"{' * '.join([f'a[{m}]' for m in ix] + [f32_literal(v)])};"
+                for j, (ix, v) in enumerate(ents)]
+
+    def zeros(target, n, reached):
+        return [f"  {target}[{r}] = 0.f;" for r in range(n) if r not in reached]
+
+    fwd, bwd = [], []
+    b_seen, dw_seen = set(), set()
+    da_terms: Dict[int, List[str]] = {m: [] for m in range(d_in)}
+    for j, (w_idx, out_idx, nu, _, ents) in enumerate(groups):
+        fwd += sums(ents)
+        fwd.append(f"  b[{out_idx}] {'+=' if out_idx in b_seen else '='} "
+                   f"w[{w_idx}] * s;")
+        b_seen.add(out_idx)
+        bwd += sums(ents)
+        bwd.append(f"  dw[{w_idx}] {'+=' if w_idx in dw_seen else '='} "
+                   f"g[{out_idx}] * s;")
+        dw_seen.add(w_idx)
+        bwd.append(f"  const float gw{j} = g[{out_idx}] * w[{w_idx}];")
+        for (ix, v) in ents:
+            for x in range(nu):
+                rest = [f"a[{m}]" for y, m in enumerate(ix) if y != x]
+                da_terms[ix[x]].append(
+                    f"gw{j} * ({' * '.join(rest + [f32_literal(v)])})" if rest
+                    else f"gw{j} * {f32_literal(v)}")
+    fwd += zeros("b", d_out, b_seen)
+    bwd += zeros("dw", p_total, dw_seen)
+    for m, terms in da_terms.items():
+        if not terms:
+            bwd.append(f"  da[{m}] = 0.f;")
+        bwd += [f"  da[{m}] {'=' if j == 0 else '+='} {t};" for j, t in enumerate(terms)]
+    return "\n".join([
+        "// Generated by repro_torch/kernels/symmetric_contraction/kernel.py::spec_header",
+        f"// for {spec!r}.",
+        "#pragma once",
+        f"constexpr int D_IN = {d_in}, P_TOTAL = {p_total}, D_OUT = {d_out};",
+        "__device__ __forceinline__ void symcon_contract(",
+        "    const float (&a)[D_IN], const float (&w)[P_TOTAL], float (&b)[D_OUT]) {",
+        "  float s;",
+        *fwd,
+        "}",
+        "__device__ __forceinline__ void symcon_transpose(",
+        "    const float (&a)[D_IN], const float (&w)[P_TOTAL], const float (&g)[D_OUT],",
+        "    float (&da)[D_IN], float (&dw)[P_TOTAL]) {",
+        "  float s;",
+        *bwd,
+        "}",
+        "",
+    ])
 
 
-def p_total_of(spec: SymConSpec) -> int:
-    return _host_tables(spec)[3]
+def build_units(specs):
+    """The (source, header) build units of these specs' kernels, for
+    :func:`repro_torch.kernels.cuda_lib.build`."""
+    return [("symmetric_contraction.cu", spec_header(spec)) for spec in specs]
 
 
 # ---------------------------------------------------------------------------
@@ -186,8 +241,6 @@ def _check_inputs(A_t, W_t, spec):
     _check("W_t", W_t, (N, p_total_of(spec), k), A_t.device)
     if A_t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {A_t.device}")
-    if A_t.is_cuda and d_in > MAX_D_IN:
-        raise ValueError(f"the CUDA kernel takes d_in <= {MAX_D_IN}, got {d_in}")
     return N, d_in, k
 
 
@@ -201,12 +254,8 @@ def symcon_fwd(A_t: torch.Tensor, W_t: torch.Tensor, spec: SymConSpec) -> torch.
     B_t = torch.empty((N, d_out, k), dtype=A_t.dtype, device=A_t.device)
     if B_t.numel() == 0:
         return B_t
-    groups, ent_idx, ent_val = device_tables(spec, A_t.device)
-    SYMCON_FWD(
-        A_t.data_ptr(), W_t.data_ptr(), B_t.data_ptr(), groups.data_ptr(),
-        ent_idx.data_ptr(), ent_val.data_ptr(), groups.shape[0], N, d_in,
-        W_t.shape[1], d_out, k,
-    )
+    SYMCON_FWD(A_t.data_ptr(), W_t.data_ptr(), B_t.data_ptr(), N, k,
+               header=spec_header(spec))
     return B_t
 
 
@@ -224,12 +273,8 @@ def symcon_bwd(
     dW = torch.empty_like(W_t)
     if dA.numel() == 0:
         return dA, dW
-    groups, ent_idx, ent_val = device_tables(spec, A_t.device)
-    SYMCON_BWD(
-        A_t.data_ptr(), W_t.data_ptr(), G_t.data_ptr(), dA.data_ptr(),
-        dW.data_ptr(), groups.data_ptr(), ent_idx.data_ptr(),
-        ent_val.data_ptr(), groups.shape[0], N, d_in, W_t.shape[1], d_out, k,
-    )
+    SYMCON_BWD(A_t.data_ptr(), W_t.data_ptr(), G_t.data_ptr(), dA.data_ptr(),
+               dW.data_ptr(), N, k, header=spec_header(spec))
     return dA, dW
 
 

@@ -38,18 +38,45 @@ def _randn(rng, dev, *shape):
     return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
 
 
-@pytest.mark.parametrize("nu", [1, 2])
-def test_symcon_kernels_match_plain(dev, nu):
-    rng = np.random.default_rng(nu)
-    spec = SymConSpec(lspec(0, 1, 2, 3), lspec(0, 1), nu)
-    N, k = 40, 24  # N * k not a multiple of the block size
-    A, W, G = (_randn(rng, dev, N, 16, k), _randn(rng, dev, N, sck.p_total_of(spec), k),
-               _randn(rng, dev, N, 4, k))
+SYMCON_CASES = {
+    # name: (in irreps, nu_max, N, k); N * k = 960 is not a multiple of the
+    # kernels' block of 128 threads
+    "nu1": ((0, 1, 2, 3), 1, 40, 24),
+    "nu2": ((0, 1, 2, 3), 2, 40, 24),
+    "nu3_in012": ((0, 1, 2), 3, 40, 24),
+    "paper_n256_k128": ((0, 1, 2, 3), 2, 256, 128),
+}
+
+
+def _symcon_operands(dev, name):
+    in_ls, nu, N, k = SYMCON_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    spec = SymConSpec(lspec(*in_ls), lspec(0, 1), nu)
+    A, W, G = (_randn(rng, dev, N, spec.in_spec.dim, k),
+               _randn(rng, dev, N, sck.p_total_of(spec), k),
+               _randn(rng, dev, N, spec.out_spec.dim, k))
+    return spec, A, W, G
+
+
+@pytest.mark.parametrize("name", sorted(SYMCON_CASES))
+def test_symcon_kernels_match_plain(dev, name):
+    spec, A, W, G = _symcon_operands(dev, name)
+    if name == "paper_n256_k128":
+        assert spec == CONFIG.symcon_spec()
     before = sck.SYMCON_FWD.launches, sck.SYMCON_BWD.launches
     _close([sck.symcon_fwd(A, W, spec)], [sck.symcon_plain(A, W, spec)])
     _close(sck.symcon_bwd(A, W, G, spec), sck.symcon_bwd_plain(A, W, G, spec))
     torch.cuda.synchronize()
     assert (sck.SYMCON_FWD.launches, sck.SYMCON_BWD.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_symcon_kernels_are_bitwise_deterministic(dev):
+    """Two launches on the same inputs give bit-identical outputs: every sum
+    runs in the generated header's fixed order, with no atomics."""
+    spec, A, W, G = _symcon_operands(dev, "paper_n256_k128")
+    assert torch.equal(sck.symcon_fwd(A, W, spec), sck.symcon_fwd(A, W, spec))
+    for a, b in zip(sck.symcon_bwd(A, W, G, spec), sck.symcon_bwd(A, W, G, spec)):
+        assert torch.equal(a, b)
 
 
 def _paper_blocking(rng, n_atoms=64):

@@ -1,6 +1,8 @@
 """Port parity, symmetric contraction: the port's wrapper and autograd op
 (plain versions on the CPU) against the JAX ``symcon_pallas`` kernels in
-interpret mode, forward and gradients, on the same numpy inputs.
+interpret mode, forward and gradients, on the same numpy inputs; and the
+port's dense-U baseline ``symcon_ref`` against the JAX ``symcon_ref`` and
+the port's ``symcon_cuda``.
 
 Tolerances are the reference's own: 2e-5 for a kernel against its oracle
 (tests/test_kernels.py), 2e-4 for gradients (tests/test_backward.py).
@@ -14,13 +16,17 @@ import torch
 from repro.core.irreps import lspec as jlspec
 from repro.core.symmetric_contraction import SymConSpec as JSpec
 from repro.core.symmetric_contraction import build_symcon_tables as jtables
+from repro.core.symmetric_contraction import init_symcon_weights as jinit
+from repro.core.symmetric_contraction import symcon_ref as jsymcon_ref
 from repro.kernels.symmetric_contraction.kernel import (
     symcon_bwd_pallas_raw,
     symcon_pallas_raw,
 )
 from repro.kernels.symmetric_contraction.ops import symcon_pallas
+from repro_torch.bridge import params_from_jax
 from repro_torch.core.irreps import lspec as tlspec
 from repro_torch.core.symmetric_contraction import SymConSpec as TSpec
+from repro_torch.core.symmetric_contraction import symcon_ref
 from repro_torch.kernels.symmetric_contraction.kernel import (
     p_total_of,
     symcon_bwd,
@@ -105,6 +111,21 @@ def test_symcon_kernel_layout_plain_versions_match_jax_raw_kernels(nu):
                         torch.from_numpy(G_t), tspec)
     np.testing.assert_allclose(dA.numpy(), np.asarray(dA_w), rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(dW.numpy(), np.asarray(dW_w), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("nu", [1, 2])
+def test_symcon_ref_matches_jax_ref_and_the_port_op(nu):
+    """The dense-U einsum baseline (``chip_smoke.py``'s library yardstick)
+    computes what the JAX baseline and the port's op compute, with the JAX
+    package's initial weights carried over by the parameter bridge."""
+    jspec, tspec, A, species, _, _ = _inputs(nu, seed=30)
+    jw = jinit(jax.random.PRNGKey(nu), jspec, N_SPECIES, K)
+    tw = params_from_jax({k: np.asarray(v) for k, v in jw.items()})
+    want = np.asarray(jsymcon_ref(jnp.asarray(A), jnp.asarray(species), jw, jspec))
+    got = symcon_ref(torch.from_numpy(A), torch.from_numpy(species).long(), tw, tspec)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    op = symcon_cuda(torch.from_numpy(A), torch.from_numpy(species), tw, tspec, block_n=8)
+    np.testing.assert_allclose(got.numpy(), op.numpy(), rtol=2e-5, atol=2e-5)
 
 
 def test_symcon_wrapper_checks_inputs_and_refuses_grad_of_grad():

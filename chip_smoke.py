@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MACE serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's MACE serving and training paths on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -21,29 +22,49 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    time the dense-U einsum baseline ``symcon_ref`` on the symmetric
    contraction's inputs (``library_ms``: its einsums, and its
    ``torch.autograd.grad`` for the backward) after checking that it
-   computes what the kernels compute; run both symmetric-contraction
-   kernels, checked the same way, at the training capacity of 3,072 atoms
-   too;
+   computes what the kernels compute; run all four kernels, checked the
+   same way, at the training capacity of 3,072 atoms too, on the edge
+   blocking of the training run's first bin (the interaction kernels at
+   both layers);
 3. start a full-width ``GraphServer`` (the paper's §5.2 widths, random
    weights from a seed, buckets of 64 and 256 atoms, 2 workers) and serve
    48 molecules of a skewed mix; every kernel's launch count over that run
-   must be above zero; then serve them once more under ``torch.profiler``
-   for the card's busy and idle share, and time each kernel's own device
-   time per launch on phase 2's inputs (``device_ms``, ``torch.profiler``),
-   with its share of its bound per layer (``bound_ms / device_ms``), and
-   at 3,072 atoms with the L2 cache flushed before each launch;
-4. serve a few of the same molecules with the same parameters on the CPU
-   (plain versions) and compare energies and forces;
-5. report: the card's name and power limit, a serving line, one JSON line
-   of kernel numbers, and last a JSON line with ``"ok": true``.
+   must be above zero;
+4. train at the paper's width: ``Trainer`` with the balanced sampler at
+   capacity 3,072 (``edge_factor`` 48) over ``SyntheticCFMDataset(2000,
+   seed=0, max_atoms=256)``, one rank, prefetch 1, random weights from the
+   seed; 5 steps, each engine step timed by CUDA events with its atoms/s,
+   loss, ``e_rmse``, ``f_rmse`` and kernel launches, which must be 2/4/2/4
+   for ``symcon_fwd``/``symcon_bwd``/``tp_scatter_fwd``/``tp_gather_bwd``
+   per bin; every loss finite; the peak device memory;
+5. measure under ``torch.profiler``: serve the molecules once more for the
+   card's busy and idle share; time each kernel's own device time per
+   launch on phase 2's inputs (``device_ms``), with its share of its bound
+   per layer, and at 3,072 atoms with the L2 cache flushed before each
+   launch; profile one more training step (device-op breakdown, idle
+   share, each kernel's device time in the step beside its launches
+   recorded and made);
+6. checkpoint the trainer after its last step and restore it into a fresh
+   one: parameters, optimizer state and EMA bit-identical;
+7. compare with the CPU (plain versions): a few served molecules'
+   energies and forces, and a 3-step training trajectory at capacity 256
+   from the same parameters over the same bins (each step's loss,
+   gradients and update from the CPU's state; then the card's own
+   trajectory: its losses, and its final parameters wherever Adam's
+   update is well conditioned);
+8. report: the card's name and power limit, one JSON line of kernel
+   numbers, and last a JSON line with ``"ok": true``.
 
 Without a CUDA device it exits with code 2 before printing any result.
 """
 from __future__ import annotations
 
+import inspect
+import itertools
 import json
 import random
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -54,10 +75,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.bridge import unflatten  # noqa: E402
 from repro_torch.configs.mace_cfm import CONFIG  # noqa: E402
 from repro_torch.core.mace import init_mace  # noqa: E402
 from repro_torch.core.symmetric_contraction import symcon_ref  # noqa: E402
-from repro_torch.data.blocking import block_edges  # noqa: E402
+from repro_torch.data.blocking import EdgeBlocking, block_edges, blocking_from_batch  # noqa: E402
 from repro_torch.data.molecules import SyntheticCFMDataset  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.kernels.channelwise_tp import kernel as tpk  # noqa: E402
@@ -69,6 +91,10 @@ from repro_torch.serve import (  # noqa: E402
     bucket_ladder,
     select_bucket,
 )
+from repro_torch.train.checkpoint import flatten_state  # noqa: E402
+from repro_torch.train.optimizer import adamw, apply_updates  # noqa: E402
+from repro_torch.train.optimizer import tree_map as opt_tree_map  # noqa: E402
+from repro_torch.train.train_loop import Trainer, TrainerConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
@@ -79,6 +105,26 @@ CAPACITIES = (64, 256)
 EDGE_FACTOR = 48
 N_REQUESTS = 48
 TRAIN_ATOMS = 3072          # examples/train_mace_cfm.py's capacity on real hardware
+TRAIN_GRAPHS = 2000         # examples/train_mace_cfm.py's --n-graphs default
+TRAIN_STEPS = 5
+# launches of each kernel per bin of a training step: the forward kernels
+# once; the backward kernels inside the forces' autograd.grad and again in
+# the loss's backward (the derivative of a backward is its plain twin's)
+PER_BIN = {"symcon_fwd": 2, "symcon_bwd": 4, "tp_scatter_fwd": 2, "tp_gather_bwd": 4}
+# the card against the CPU over a short trajectory: the cross-implementation
+# tolerances of tests/test_engine.py:493 (the card's index_add_ sums in no
+# fixed order)
+CPU_CAPACITY = 256
+CPU_STEPS = 3
+TRAIN_LOSS_RTOL = 5e-4
+TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 2e-3, 2e-5
+# the free-running parameters are held to that bound where the CPU's Adam
+# denominator sqrt(v_hat) was 0 or above this many eps at every step: there
+# a gradient's float32 rounding moves Adam's update by little (see
+# compare_training_with_cpu); eps and b2 are TrainerConfig's AdamW's
+ADAM_HELD_EPS = 100
+_ADAM_DEFAULTS = inspect.signature(adamw).parameters
+ADAM_EPS, ADAM_B2 = _ADAM_DEFAULTS["eps"].default, _ADAM_DEFAULTS["b2"].default
 # zeroed before each launch timed at TRAIN_ATOMS, five times the card's 50 MB
 # L2: the kernel reads its inputs from device memory and, as after an op
 # that wrote its output, writes back the dirty lines it evicts (the
@@ -246,10 +292,11 @@ def _bucket_blocking(rng, bucket):
     return blk
 
 
-def check_kernels(dev):
-    rng = np.random.default_rng(SEED)
-    bucket = bucket_ladder(CAPACITIES, edge_factor=EDGE_FACTOR)[-1]
-    blk = _bucket_blocking(rng, bucket)
+def _kernel_calls(dev, rng, blk, N, layer):
+    """The four kernels' calls at one interaction layer's shapes over ``N``
+    atoms and the slots of the edge blocking ``blk``, on fresh random
+    inputs, each with its plain version, the bytes and operations its
+    inputs need, and (the symmetric contraction) its library baseline."""
     T, bn, k = blk.n_atom_tiles, blk.block_n, CONFIG.channels
     E_p = blk.perm.shape[0]
     n_valid = int(blk.valid.sum())
@@ -262,46 +309,49 @@ def check_kernels(dev):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
 
     spec = CONFIG.symcon_spec()
-    N, d_in, d_out = bucket.max_nodes, spec.in_spec.dim, spec.out_spec.dim
-    P = sck.p_total_of(spec)
+    d_in, d_out, P = spec.in_spec.dim, spec.out_spec.dim, sck.p_total_of(spec)
     (fwd_bytes, fwd_ops), (bwd_bytes, bwd_ops) = _symcon_work(spec, N, k)
     kw = dict(n_tiles=T, block_n=bn)
+    A_t, W_t, G_t = randn(N, d_in, k), randn(N, P, k), randn(N, d_out, k)
+    tp = CONFIG.tp_spec_at(layer)
+    d_sh, d_h, n_paths, d_a = tp.y_spec.dim, tp.h_spec.dim, tp.n_paths, tp.out_spec.dim
+    n_ent = len(tpk.tp_entries(tp))
+    Y_b, h_b, R_b = randn(E_p, d_sh), randn(E_p, d_h, k), randn(E_p, n_paths, k)
+    G_a = randn(T * bn, d_a, k)
+    slot_bytes = 4 * n_valid * (d_sh + (d_h + n_paths) * k) + 5 * E_p
+    lib_fwd, lib_bwd = _symcon_library(A_t, W_t, G_t, spec)
+    return {
+        "symcon_fwd": dict(
+            run=lambda: sck.symcon_fwd(A_t, W_t, spec),
+            plain=lambda: sck.symcon_plain(A_t, W_t, spec),
+            library=lib_fwd, bytes=fwd_bytes, ops=fwd_ops),
+        "symcon_bwd": dict(
+            run=lambda: sck.symcon_bwd(A_t, W_t, G_t, spec),
+            plain=lambda: sck.symcon_bwd_plain(A_t, W_t, G_t, spec),
+            library=lib_bwd, bytes=bwd_bytes, ops=bwd_ops),
+        "tp_scatter_fwd": dict(
+            run=lambda: tpk.tp_scatter(Y_b, h_b, R_b, local, valid, tp, **kw),
+            plain=lambda: tpk.tp_scatter_plain(Y_b, h_b, R_b, local, valid, tp, **kw),
+            bytes=slot_bytes + 4 * T * bn * d_a * k, ops=4 * n_valid * k * n_ent),
+        "tp_gather_bwd": dict(
+            run=lambda: tpk.tp_gather_bwd(G_a, Y_b, h_b, R_b, local, valid, tp, **kw),
+            plain=lambda: tpk.tp_gather_bwd_plain(
+                G_a, Y_b, h_b, R_b, local, valid, tp, **kw),
+            bytes=(slot_bytes + 4 * rows_needed * d_a * k
+                   + 4 * E_p * (d_sh + (d_h + n_paths) * k)),
+            ops=11 * n_valid * k * n_ent),
+    }
 
-    def layer_calls(layer):
-        """The four kernels' calls at this layer's shapes, on fresh inputs."""
-        A_t, W_t, G_t = randn(N, d_in, k), randn(N, P, k), randn(N, d_out, k)
-        tp = CONFIG.tp_spec_at(layer)
-        d_sh, d_h, n_paths, d_a = tp.y_spec.dim, tp.h_spec.dim, tp.n_paths, tp.out_spec.dim
-        n_ent = len(tpk.tp_entries(tp))
-        Y_b, h_b, R_b = randn(E_p, d_sh), randn(E_p, d_h, k), randn(E_p, n_paths, k)
-        G_a = randn(T * bn, d_a, k)
-        slot_bytes = 4 * n_valid * (d_sh + (d_h + n_paths) * k) + 5 * E_p
-        lib_fwd, lib_bwd = _symcon_library(A_t, W_t, G_t, spec)
-        return {
-            "symcon_fwd": dict(
-                run=lambda: sck.symcon_fwd(A_t, W_t, spec),
-                plain=lambda: sck.symcon_plain(A_t, W_t, spec),
-                library=lib_fwd, bytes=fwd_bytes, ops=fwd_ops),
-            "symcon_bwd": dict(
-                run=lambda: sck.symcon_bwd(A_t, W_t, G_t, spec),
-                plain=lambda: sck.symcon_bwd_plain(A_t, W_t, G_t, spec),
-                library=lib_bwd, bytes=bwd_bytes, ops=bwd_ops),
-            "tp_scatter_fwd": dict(
-                run=lambda: tpk.tp_scatter(Y_b, h_b, R_b, local, valid, tp, **kw),
-                plain=lambda: tpk.tp_scatter_plain(Y_b, h_b, R_b, local, valid, tp, **kw),
-                bytes=slot_bytes + 4 * T * bn * d_a * k, ops=4 * n_valid * k * n_ent),
-            "tp_gather_bwd": dict(
-                run=lambda: tpk.tp_gather_bwd(G_a, Y_b, h_b, R_b, local, valid, tp, **kw),
-                plain=lambda: tpk.tp_gather_bwd_plain(
-                    G_a, Y_b, h_b, R_b, local, valid, tp, **kw),
-                bytes=(slot_bytes + 4 * rows_needed * d_a * k
-                       + 4 * E_p * (d_sh + (d_h + n_paths) * k)),
-                ops=11 * n_valid * k * n_ent),
-        }
 
+def check_kernels(dev):
+    """Phase 2 at the 256-atom bucket, both layers: rows summed over the
+    layers' calls, as one forward makes them."""
+    rng = np.random.default_rng(SEED)
+    bucket = bucket_ladder(CAPACITIES, edge_factor=EDGE_FACTOR)[-1]
+    blk = _bucket_blocking(rng, bucket)
     calls = {name: [] for name in KERNELS}
     for layer in range(CONFIG.n_interactions):
-        for name, c in layer_calls(layer).items():
+        for name, c in _kernel_calls(dev, rng, blk, bucket.max_nodes, layer).items():
             calls[name].append(dict(c, layer=layer))
 
     results = {}
@@ -357,42 +407,32 @@ def _check_call(name, where, c):
         raise AssertionError(f"kernel {name} {where} disagrees with its plain "
                              f"version: {err:.3e}")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound, library_ms=library_ms,
-                bytes=c["bytes"], ops=c["ops"], run=c["run"])
+                bytes=c["bytes"], ops=c["ops"], run=c["run"], where=where)
 
 
-def check_training_size(dev):
-    """Both symmetric-contraction kernels at the training capacity (3,072
-    atoms, the paper's spec and width), checked and timed as in
-    ``check_kernels``: at this size launch latency no longer hides the
-    bound."""
+def check_training_size(dev, blk):
+    """The four kernels at the training capacity (3,072 atoms), on the edge
+    blocking of the training run's first bin, checked and timed as in
+    ``check_kernels``: the interaction kernels at both layers, the
+    symmetric contraction (one spec for both layers) at one.  At this size
+    launch latency no longer hides the bound."""
     rng = np.random.default_rng(SEED + 1)
-    spec, N, k = CONFIG.symcon_spec(), TRAIN_ATOMS, CONFIG.channels
-    A_t, W_t, G_t = (
-        torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
-        for shape in ((N, spec.in_spec.dim, k), (N, sck.p_total_of(spec), k),
-                      (N, spec.out_spec.dim, k)))
-    (fwd_bytes, fwd_ops), (bwd_bytes, bwd_ops) = _symcon_work(spec, N, k)
-    lib_fwd, lib_bwd = _symcon_library(A_t, W_t, G_t, spec)
-    calls = {
-        "symcon_fwd": dict(
-            run=lambda: sck.symcon_fwd(A_t, W_t, spec),
-            plain=lambda: sck.symcon_plain(A_t, W_t, spec),
-            library=lib_fwd, bytes=fwd_bytes, ops=fwd_ops),
-        "symcon_bwd": dict(
-            run=lambda: sck.symcon_bwd(A_t, W_t, G_t, spec),
-            plain=lambda: sck.symcon_bwd_plain(A_t, W_t, G_t, spec),
-            library=lib_bwd, bytes=bwd_bytes, ops=bwd_ops),
-    }
-    return {name: _check_call(name, f"N={N} k={k}", c) for name, c in calls.items()}
+    out = {name: [] for name in KERNELS}
+    for layer in range(CONFIG.n_interactions):
+        for name, c in _kernel_calls(dev, rng, blk, TRAIN_ATOMS, layer).items():
+            if layer == 0 or name.startswith("tp_"):
+                out[name].append(_check_call(
+                    name, f"N={TRAIN_ATOMS} layer {layer}", c))
+    return out
 
 
 def time_kernels(results, training) -> None:
     """Each kernel's own device time per launch (``torch.profiler``) on
-    phase 2's inputs, with its share of the bound per layer, and the
-    symmetric-contraction kernels' at the training capacity, each launch
-    finding its inputs outside the L2 cache.  Run after the serving
-    measurements: once the profiler has run in a process, later launches in
-    it were slower (serving runs in PERF.md)."""
+    phase 2's inputs, with its share of the bound per layer, and at the
+    training capacity, each launch finding its inputs outside the L2 cache.
+    Run after the serving and training measurements: once the profiler has
+    run in a process, later launches in it were slower (serving runs in
+    PERF.md)."""
     reps = 20
     for name, res in results.items():
         per_layer, recorded = [], 0
@@ -409,14 +449,16 @@ def time_kernels(results, training) -> None:
                    device_launches_recorded=recorded,
                    device_launches_made=reps * len(per_layer))
     flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
-    for name, r in training.items():
-        ms, seen = _device_ms(r["run"], KERNELS[name]["symbol"], reps,
-                              before=lambda: flush.zero_())
-        print(f"kernel {name} N={TRAIN_ATOMS} k={CONFIG.channels}: "
-              f"max_abs_err={r['err']:.3e} device_ms={ms:.4f} "
-              f"bound_ms={r['bound']:.4f} share_of_bound={r['bound'] / ms:.3f} "
-              f"launches_recorded={seen}/{reps} "
-              f"ms={r['ms']:.4f} library_ms={r['library_ms']:.4f}", flush=True)
+    for name, rows in training.items():
+        for r in rows:
+            ms, seen = _device_ms(r["run"], KERNELS[name]["symbol"], reps,
+                                  before=lambda: flush.zero_())
+            library = "" if r["library_ms"] is None else f" library_ms={r['library_ms']:.4f}"
+            print(f"kernel {name} {r['where']}: "
+                  f"max_abs_err={r['err']:.3e} device_ms={ms:.4f} "
+                  f"bound_ms={r['bound']:.4f} share_of_bound={r['bound'] / ms:.3f} "
+                  f"launches_recorded={seen}/{reps} ms={r['ms']:.4f}{library}", flush=True)
+            r.update(device_ms=ms, recorded=seen)
 
 
 # ---------------------------------------------------------------------------
@@ -468,6 +510,16 @@ def _device_us(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
 
+def _kernel_events(prof):
+    """The device kernels of a profile, by name: the operators that launch
+    them carry the same device time and are left out, so sums count each
+    kernel once."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+
+
 def profile_serving(params, mols):
     """Serve the same requests again under ``torch.profiler``: the share of
     the wall time the card is busy, and on which operations."""
@@ -485,7 +537,7 @@ def profile_serving(params, mols):
         wall_ms = (time.perf_counter() - t0) * 1e3
     bins = sum(server.stats()["bucket_bins"].values())
     server.close()
-    events = [e for e in prof.key_averages() if _device_us(e) > 0]
+    events = _kernel_events(prof)
     busy_ms = sum(_device_us(e) for e in events) / 1e3
     if busy_ms == 0:
         print("profile: device time not measured (the profiler saw no device time)")
@@ -523,6 +575,245 @@ def compare_with_cpu(params, mols, results, buckets):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training on the card
+# ---------------------------------------------------------------------------
+
+
+def _launches():
+    return {name: spec["kernel"].launches for name, spec in KERNELS.items()}
+
+
+def _trainer(capacity, device, params=None, ckpt_dir=None):
+    """``examples/train_mace_cfm.py``'s trainer at the paper's width: the
+    balanced sampler over ``SyntheticCFMDataset(2000, seed=0,
+    max_atoms=256)``, one rank, prefetch 1, ``max_graphs = capacity // 8``;
+    random weights from ``SEED`` unless ``params`` are given."""
+    tcfg = TrainerConfig(capacity=capacity, edge_factor=EDGE_FACTOR,
+                         max_graphs=max(16, capacity // 8), prefetch=1,
+                         ckpt_dir=ckpt_dir, ckpt_every=0)
+    dataset = SyntheticCFMDataset(TRAIN_GRAPHS, seed=SEED, max_atoms=max(CAPACITIES))
+    return Trainer(CONFIG, tcfg, dataset, seed=SEED, params=params, device=device)
+
+
+def first_bin_blocking(tr):
+    """The edge blocking of the training run's first bin (the shapes the
+    training path gives the interaction kernels)."""
+    rank_bins = next(tr.sampler.step_iter(tr.sampler_state))
+    (batch,), _ = tr.engine.collate([[tr.dataset.get(i) for i in rank_bins[0]]],
+                                    tr.bin_shape)
+    blk = blocking_from_batch(batch)
+    return EdgeBlocking(blk["perm"], blk["valid"], blk["local"], blk["base"],
+                        tr.bin_shape.block_n, blk["perm"].shape[0] // blk["base"].shape[0])
+
+
+def train_steps(tr):
+    """``TRAIN_STEPS`` steps of ``Trainer.train`` on the card, each engine
+    step timed by CUDA events with the kernel launches it made; every count
+    is set to 0 just before the run and read just after."""
+    rows, engine_step = [], tr.engine.step
+
+    def timed_step(params, opt_state, batches, step):
+        before = _launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = engine_step(params, opt_state, batches, step)
+        end.record()
+        torch.cuda.synchronize()
+        after = _launches()
+        rows.append(dict(ms=start.elapsed_time(end),
+                         atoms=sum(float(b["node_mask"].sum()) for b in batches),
+                         launches={k: after[k] - before[k] for k in after}))
+        return out
+
+    tr.engine.step = timed_step
+    for spec in KERNELS.values():
+        spec["kernel"].launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    hist = tr.train(n_epochs=1, max_steps=TRAIN_STEPS)["history"]
+    torch.cuda.synchronize()
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    tr.engine.step = engine_step
+    for i, (h, r) in enumerate(zip(hist, rows)):
+        print(f"train step {i}: loss={h['loss']:.6f} e_rmse={h['e_rmse']:.6f} "
+              f"f_rmse={h['f_rmse']:.6f} step_ms={r['ms']:.2f} atoms={r['atoms']:.0f} "
+              f"atoms_per_s={r['atoms'] / r['ms'] * 1e3:.1f} launches={r['launches']}",
+              flush=True)
+    print(f"train: {len(hist)} steps at capacity {TRAIN_ATOMS}, "
+          f"peak_memory_allocated_gb={peak / 2**30:.2f} launches={launches}", flush=True)
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"training did not take {TRAIN_STEPS} finite steps: {hist}")
+    for r in rows:
+        if r["launches"] != PER_BIN:
+            raise AssertionError(f"a training step launched {r['launches']}, "
+                                 f"expected {PER_BIN} for its one bin")
+    return dict(history=hist, rows=rows, launches=launches, peak_bytes=peak)
+
+
+def profile_train_step(tr, step_ms):
+    """One more training step under ``torch.profiler``: the card's busy and
+    idle share of the step's wall time, its device operations by time, and
+    each kernel's device time in the step beside its launches recorded and
+    made.  The profiler's own host work stretches the profiled step, so its
+    busy time is also set against ``step_ms``, the CUDA-event times of the
+    unprofiled steps after the first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = _launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train(n_epochs=1, max_steps=tr.global_step + 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    made = {k: v - before[k] for k, v in _launches().items()}
+    events = _kernel_events(prof)
+    busy_ms = sum(_device_us(e) for e in events) / 1e3
+    if busy_ms == 0:
+        raise AssertionError("the profiler saw no device time in the training step")
+    print(f"train profile: one step, wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} "
+          f"device_idle_share={1 - busy_ms / wall_ms:.3f} "
+          f"device_ops={sum(e.count for e in events)}", flush=True)
+    print(f"train profile: device busy against the unprofiled steps 2-{len(step_ms)} "
+          f"(CUDA events, {min(step_ms[1:]):.1f}-{max(step_ms[1:]):.1f} ms): idle share "
+          f"{1 - busy_ms / min(step_ms[1:]):.3f}-{1 - busy_ms / max(step_ms[1:]):.3f}",
+          flush=True)
+    for e in sorted(events, key=_device_us, reverse=True)[:12]:
+        print(f"train profile top: {_device_us(e) / 1e3:9.3f} ms x{e.count:<5d} {e.key[:90]}")
+    out = {}
+    for name, spec in KERNELS.items():
+        mine = [e for e in events if spec["symbol"] in e.key]
+        ms, seen = sum(map(_device_us, mine)) / 1e3, sum(e.count for e in mine)
+        print(f"train profile kernel {name}: device_ms={ms:.4f} "
+              f"launches_recorded={seen}/{made[name]}", flush=True)
+        if seen < MIN_RECORDED * made[name]:
+            raise AssertionError(f"the profiler recorded {seen} of {made[name]} "
+                                 f"launches of {name}")
+        out[name] = dict(device_ms=ms, recorded=seen, made=made[name])
+    return out
+
+
+def checkpoint_round_trip(tr):
+    """Save after the last step, restore into a fresh trainer: parameters,
+    optimizer state and EMA bit-identical."""
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tr.tcfg.ckpt_dir = str(ckpt_dir)
+    tr.save()
+    fresh = _trainer(TRAIN_ATOMS, None, ckpt_dir=str(ckpt_dir))
+    if not fresh.maybe_restore() or fresh.global_step != tr.global_step:
+        raise AssertionError("the checkpoint did not restore")
+    want, got = flatten_state(tr._state()), flatten_state(fresh._state())
+    same = want.keys() == got.keys() and all(torch.equal(want[k], got[k]) for k in want)
+    print(f"checkpoint: step {fresh.global_step}, {len(want)} arrays restored "
+          f"bit-identical={same}", flush=True)
+    if not same:
+        raise AssertionError("the restored state differs from the saved one")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def _beyond(got, want, held):
+    """(elements of ``got`` beyond rtol / atol of ``want``, of how many,
+    the largest excess and where), over the elements of flat {path: tensor}
+    trees that the boolean tree ``held`` selects."""
+    n_over, n_all, worst = 0, 0, (-float("inf"), "", 0)
+    for k, w in want.items():
+        w, mask = w.cpu(), held[k].cpu()
+        excess = (got[k].cpu() - w).abs() - TRAIN_PARAM_ATOL - TRAIN_PARAM_RTOL * w.abs()
+        excess = excess.masked_fill(~mask, -float("inf"))
+        n_over += int((excess > 0).sum())
+        n_all += int(mask.sum())
+        if n_all and float(excess.max()) > worst[0]:
+            worst = (float(excess.max()), k, int(excess.argmax()))
+    return n_over, n_all, worst
+
+
+def _adam_denominator(opt_state, step):
+    """{path: sqrt(v_hat)} of the AdamW state after ``step`` (0-based)."""
+    (adam,) = [s for s in opt_state if isinstance(s, dict) and "v" in s]
+    return {k: (v / (1 - ADAM_B2 ** (step + 1))).sqrt()
+            for k, v in flatten_state(adam["v"]).items()}
+
+
+def compare_training_with_cpu():
+    """``CPU_STEPS`` steps at capacity ``CPU_CAPACITY`` on the CPU (plain
+    versions) and on the card, from the same parameters over the same bins.
+    Each step is checked in its two parts, from the CPU's state before it:
+    the loss and its parameter gradients on the card against the CPU's
+    (loss rtol 5e-4; gradients within the reference's bound, 2e-4 of each
+    leaf's largest magnitude, tests/test_backward.py), and the optimizer
+    update on the card from the CPU's gradients against the CPU's update
+    (parameters within rtol 2e-3 / atol 2e-5, tests/test_engine.py:493).
+    Then the card's own 3-step trajectory: its losses within rtol 5e-4 of
+    the CPU's, and its final parameters within rtol 2e-3 / atol 2e-5 of the
+    CPU's wherever Adam is well conditioned, that is where the CPU's
+    denominator sqrt(v_hat) was, at every step, either 0 (no gradient yet:
+    a species the bins do not hold) or above ``ADAM_HELD_EPS`` eps.  Adam
+    maps a gradient g to about ``lr * g / (|g| + eps)``, so where |g| is
+    near eps float32 rounding in g moves a parameter by more than 2e-5
+    (PERF.md); the elements in between are counted, and those of them
+    beyond the bound reported."""
+    params = init_mace(CONFIG, torch.Generator().manual_seed(SEED + 2))
+    cpu = _trainer(CPU_CAPACITY, "cpu", params=params)
+    card = _trainer(CPU_CAPACITY, "cuda", params=params)
+    to_card = lambda tree: opt_tree_map(lambda t: t.to(card.device), tree)  # noqa: E731
+    everywhere = {k: torch.ones_like(v, dtype=torch.bool)
+                  for k, v in flatten_state(params).items()}
+    p, o, losses, held = cpu.params, cpu.opt_state, [], everywhere
+    t0 = time.perf_counter()
+    for step, rank_bins in enumerate(itertools.islice(
+            cpu.sampler.step_iter(cpu.sampler_state), CPU_STEPS)):
+        host, _ = cpu.engine.collate(
+            [[cpu.dataset.get(i) for i in b] for b in rank_bins], cpu.bin_shape)
+        gc, mc = cpu.engine.grads(p, cpu.engine.to_device(host)[0])
+        gg, mg = card.engine.grads(to_card(p), card.engine.to_device(host)[0])
+        losses.append(float(mc["loss"]))
+        loss_err = abs(float(mg["loss"]) - losses[-1]) / abs(losses[-1])
+        grad_err, grad_key = max((float((gg[k].cpu() - gc[k]).abs().max())
+                                  / max(float(gc[k].abs().max()), 1e-30), k) for k in gc)
+        gc = unflatten(gc)
+        upd_c, o_next = cpu.optimizer.update(gc, o, p, step)
+        upd_g, _ = card.optimizer.update(to_card(gc), to_card(o), to_card(p), step)
+        p_next = apply_updates(p, upd_c)
+        n_over, n_all, worst = _beyond(flatten_state(apply_updates(to_card(p), upd_g)),
+                                       flatten_state(p_next), everywhere)
+        print(f"train cpu compare: step {step} from the CPU's state: loss cpu "
+              f"{losses[-1]:.7f} card {float(mg['loss']):.7f} (rel {loss_err:.2e}, tol "
+              f"{TRAIN_LOSS_RTOL:g}); gradients max leaf-relative diff {grad_err:.3e} "
+              f"({grad_key}; tol 2e-4); update from the CPU's gradients: {n_over} of "
+              f"{n_all} parameters beyond rtol {TRAIN_PARAM_RTOL:g} / atol "
+              f"{TRAIN_PARAM_ATOL:g} (worst excess {worst[0]:.3e})", flush=True)
+        if loss_err > TRAIN_LOSS_RTOL or grad_err > 2e-4 or n_over:
+            raise AssertionError(f"training step {step} on the card differs from the CPU's")
+        denom = _adam_denominator(o_next, step)
+        held = {k: held[k] & ((denom[k] == 0) | (denom[k] > ADAM_HELD_EPS * ADAM_EPS))
+                for k in held}
+        p, o = p_next, o_next
+    print(f"train cpu compare: cpu losses={losses} in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    tr = _trainer(CPU_CAPACITY, "cuda", params=params)
+    hist = tr.train(n_epochs=1, max_steps=CPU_STEPS)["history"]
+    loss_err = max(abs(h["loss"] - c) / abs(c) for h, c in zip(hist, losses))
+    final, want = flatten_state(tr.params), flatten_state(p)
+    n_over, n_held, worst = _beyond(final, want, held)
+    n_zero = sum(int((d == 0).sum()) for d in _adam_denominator(o, CPU_STEPS - 1).values())
+    r_over, r_all, r_worst = _beyond(final, want, {k: ~m for k, m in held.items()})
+    print(f"train cpu compare: card losses={[h['loss'] for h in hist]} "
+          f"max_rel_loss_err={loss_err:.3e} (tol {TRAIN_LOSS_RTOL:g}); final params, "
+          f"held where the CPU's Adam denominator stayed 0 or above {ADAM_HELD_EPS:g} eps "
+          f"({n_zero} of them with no gradient): "
+          f"{n_over} of {n_held} beyond rtol {TRAIN_PARAM_RTOL:g} / atol "
+          f"{TRAIN_PARAM_ATOL:g} (worst excess {worst[0]:.3e} at {worst[1]}[{worst[2]}]); "
+          f"the other {r_all} (reported): {r_over} beyond, worst excess "
+          f"{r_worst[0]:.3e} at {r_worst[1]}[{r_worst[2]}]", flush=True)
+    if len(hist) != CPU_STEPS or loss_err > TRAIN_LOSS_RTOL:
+        raise AssertionError("the card's loss trajectory differs from the CPU's")
+    if n_over:
+        raise AssertionError("the card's free-running parameters differ from the CPU's "
+                             "where Adam is well conditioned")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
@@ -535,7 +826,7 @@ def main() -> int:
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
+          f"{torch.cuda.get_device_name(0)}; card: {card}", flush=True)
 
     t0 = time.perf_counter()
     specs = [CONFIG.tp_spec_at(layer) for layer in range(CONFIG.n_interactions)]
@@ -549,7 +840,8 @@ def main() -> int:
                 raise AssertionError(f"{kernel} uses a stack frame or spills: {report}")
 
     kernel_results = check_kernels(dev)
-    training_results = check_training_size(dev)
+    tr = _trainer(TRAIN_ATOMS, None)  # device None: the CUDA card
+    training_results = check_training_size(dev, first_bin_blocking(tr))
 
     params = init_mace(CONFIG, torch.Generator().manual_seed(SEED))
     mols = skewed_requests()
@@ -561,10 +853,14 @@ def main() -> int:
     missing = [name for name, n in launches.items() if n <= 0]
     if missing:
         raise AssertionError(f"the serving run launched no {missing}")
+    train = train_steps(tr)
 
     profile_serving(params, mols)
     time_kernels(kernel_results, training_results)
+    train_profile = profile_train_step(tr, [r["ms"] for r in train["rows"]])
+    checkpoint_round_trip(tr)
     compare_with_cpu(params, mols, results, buckets)
+    compare_training_with_cpu()
 
     print(card)
     print(json.dumps({"kernels": [
@@ -578,7 +874,17 @@ def main() -> int:
              per_layer_device_ms=kernel_results[name]["per_layer_device_ms"],
              per_layer_share_of_bound=kernel_results[name]["per_layer_share_of_bound"],
              device_launches_recorded=kernel_results[name]["device_launches_recorded"],
-             device_launches_made=kernel_results[name]["device_launches_made"])
+             device_launches_made=kernel_results[name]["device_launches_made"],
+             training_launches=train["launches"][name],
+             training_launches_per_step=[r["launches"][name] for r in train["rows"]],
+             training_device_ms_per_step=train_profile[name]["device_ms"],
+             training_device_launches_recorded=train_profile[name]["recorded"],
+             training_device_launches_made=train_profile[name]["made"],
+             train_bin_max_abs_err=max(r["err"] for r in training_results[name]),
+             train_bin_device_ms=[r["device_ms"] for r in training_results[name]],
+             train_bin_bound_ms=[r["bound"] for r in training_results[name]],
+             train_bin_device_launches_recorded=[r["recorded"]
+                                                 for r in training_results[name]])
         for name, spec in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

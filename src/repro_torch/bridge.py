@@ -1,4 +1,5 @@
-"""Parameter bridge between the JAX package's pytrees and the port.
+"""Parameter bridge between the JAX package's pytrees and the port, and the
+placement of parameters on the port's device.
 
 Torch cannot reproduce ``jax.random``, so a test gives both models the same
 weights by converting the JAX parameters (as numpy) into the port's nested
@@ -9,7 +10,7 @@ numpy arrays.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -59,3 +60,16 @@ def params_to_numpy(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
 def params_to(params: Mapping[str, Any], device) -> Dict[str, Any]:
     """The same nested dict with every tensor moved to ``device``."""
     return unflatten({k: v.to(device) for k, v in flatten(params).items()})
+
+
+def resolve_device(device: Optional[Any]) -> torch.device:
+    """``None`` -> the CUDA card, and an error when there is none.  Every
+    entry point of the port (serving and training) resolves its device
+    here."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the port runs on the GPU; pass "
+            "device='cpu' to run the plain PyTorch versions on the CPU"
+        )
+    return dev

@@ -6,9 +6,11 @@ bins full when the current item no longer fits, and *reactivate* full bins
 when a non-full bin becomes more occupied than a full one (the adaptive bin
 management of §3.2).  ``len(bins) % n_ranks == 0`` is guaranteed.
 
-Pure numpy host code: the serving batcher packs each request wave with it.
-The baselines and balance metrics of the JAX module wait for the training
-slice of the port.
+Pure numpy host code: the serving batcher packs each request wave with it,
+and the training sampler each epoch.  Beside it, the PyG-style
+fixed-graph-count baseline (:func:`fixed_count_batches`) the paper compares
+against.  The other baselines and the balance metrics of the JAX module are
+not ported.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import List, Sequence
 
 import numpy as np
 
-__all__ = ["Bins", "create_balanced_batches"]
+__all__ = ["Bins", "create_balanced_batches", "fixed_count_batches"]
 
 
 @dataclasses.dataclass
@@ -123,3 +125,29 @@ def create_balanced_batches(
     while len(result.bins) % n_ranks != 0:
         result.bins.append([])
     return result
+
+
+def fixed_count_batches(
+    sizes: Sequence[int],
+    graphs_per_batch: int,
+    n_ranks: int,
+    *,
+    shuffle: bool = False,
+    seed: int = 0,
+) -> Bins:
+    """PyG-style fixed-graph-count minibatching (paper baseline)."""
+    sizes_arr = np.asarray(sizes, dtype=np.int64)
+    N = len(sizes_arr)
+    idx = np.arange(N)
+    if shuffle:
+        rng = np.random.default_rng(seed)
+        rng.shuffle(idx)
+    bins = [
+        list(map(int, idx[s : s + graphs_per_batch]))
+        for s in range(0, N, graphs_per_batch)
+    ]
+    while len(bins) % n_ranks != 0:
+        bins.append([])
+    # capacity := max observed load (fixed-count has no capacity concept)
+    loads = [int(sizes_arr[b].sum()) if b else 0 for b in bins]
+    return Bins(bins, sizes_arr, max(loads) if loads else 0)

@@ -3,10 +3,15 @@
     A~_{ji,k,l3m3} = sum_{(l1,l2)->l3} R_{ji,k,(l1l2l3)}
                      sum_{m1,m2} C^{l3m3}_{l1m1,l2m2} Y_{ji,l1m1} h_{j,k,l2m2}
 
-Port of the spec and table half of the JAX package's ``core/channelwise_tp.py``.
-The tables are what the interaction kernels (``repro_torch.kernels.
-channelwise_tp``) read; the ``tp_ref``/``tp_fused`` twins wait for the
-training slice.
+Port of the JAX package's ``core/channelwise_tp.py``: the spec and the
+sparse CG tables, which the interaction kernels (``repro_torch.kernels.
+channelwise_tp``) unroll, and the two plain-torch formulations:
+
+* :func:`tp_ref` — one dense einsum per CG path (the e3nn-style oracle);
+* :func:`tp_fused` — the per-edge contributions in the nnz basis
+  (:func:`tp_contrib`) times the one-hot m3 projection
+  (:func:`cg_scatter_matrix`): the twin whose autodiff is the derivative
+  of the interaction backward kernel (``core.interaction.interaction_fused``).
 """
 from __future__ import annotations
 
@@ -15,8 +20,9 @@ import functools
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
-from .cg import cg_nonzeros
+from .cg import cg_nonzeros, real_cg
 from .irreps import LSpec, tp_paths
 
 
@@ -37,9 +43,11 @@ class TPSpec:
         return len(self.paths)
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class TPTables:
-    """Sparse CG tables, flattened across all paths."""
+    """Sparse CG tables, flattened across all paths.  Hashed by identity
+    (``build_tp_tables`` memoises one per spec), so the device copies of
+    :func:`_table_tensor` can be cached on it."""
 
     m1: np.ndarray      # [nnz] index into y dim
     m2: np.ndarray      # [nnz] index into h dim
@@ -73,3 +81,81 @@ def build_tp_tables(spec: TPSpec) -> TPTables:
         dim_out=spec.out_spec.dim,
         n_paths=spec.n_paths,
     )
+
+
+def tp_ref(
+    Y: torch.Tensor,       # [E, dim_y]
+    h_send: torch.Tensor,  # [E, k, dim_h]   (already gathered to edges)
+    R: torch.Tensor,       # [E, n_paths, k]
+    spec: TPSpec,
+) -> torch.Tensor:
+    """Baseline: one dense einsum per CG path (e3nn-style op chain)."""
+    E, k = h_send.shape[0], h_send.shape[1]
+    out = h_send.new_zeros((E, k, spec.out_spec.dim))
+    for p, (l1, l2, l3) in enumerate(spec.paths):
+        C = torch.as_tensor(real_cg(l1, l2, l3), dtype=h_send.dtype,
+                            device=h_send.device)
+        y_p = Y[:, spec.y_spec.slice_for(l1)]
+        h_p = h_send[:, :, spec.h_spec.slice_for(l2)]
+        r_p = R[:, p, :]
+        block = torch.einsum("abc,ea,ekb->ekc", C, y_p, h_p) * r_p[:, :, None]
+        out[:, :, spec.out_spec.slice_for(l3)] += block
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _table_tensor(tables: TPTables, name: str, depth: int, dtype,
+                  device) -> torch.Tensor:
+    """A table as a tensor on ``device``, made once per (tables, dtype,
+    device): ``"val"`` is the CG values [nnz]; any other name is a [depth,
+    nnz] one-hot of that index column, so ``x @ onehot`` is ``x[...,
+    idx]`` exactly (each column sums one product with 1.0).  Cached because
+    the twin runs once per edge chunk, and a fresh copy from the host each
+    call would make the stream wait on it."""
+    if name == "val":
+        return torch.as_tensor(tables.val, dtype=dtype, device=device)
+    idx = getattr(tables, name)
+    out = np.zeros((depth, len(idx)), np.float64)
+    out[idx, np.arange(len(idx))] = 1.0
+    return torch.as_tensor(out, dtype=dtype, device=device)
+
+
+def tp_contrib(
+    Y: torch.Tensor,       # [E, dim_y]
+    h_send: torch.Tensor,  # [E, k, dim_h]
+    R: torch.Tensor,       # [E, n_paths, k]
+    tables: TPTables,
+) -> torch.Tensor:
+    """Per-edge CG contributions in the *nnz basis*: [E, k, nnz].  The m3
+    projection (:func:`cg_scatter_matrix`) is linear, so it commutes with
+    any linear pooling over edges.
+
+    The three column gathers of the JAX ``tp_contrib`` are products with
+    one-hot matrices here: the same values, but their autodiff (twice, in
+    the second-order rule of the interaction op) is a matrix product
+    rather than PyTorch's sort-based indexing backward."""
+    dt, dev = h_send.dtype, h_send.device
+    val = _table_tensor(tables, "val", 0, dt, dev)
+    yg = Y @ _table_tensor(tables, "m1", Y.shape[1], dt, dev)                   # [E, nnz]
+    hg = h_send @ _table_tensor(tables, "m2", h_send.shape[2], dt, dev)         # [E, k, nnz]
+    rg = R.transpose(1, 2) @ _table_tensor(tables, "path", R.shape[1], dt, dev)  # [E, k, nnz]
+    return (yg[:, None, :] * val) * hg * rg
+
+
+def cg_scatter_matrix(tables: TPTables, dtype, device=None) -> torch.Tensor:
+    """[nnz, dim_out] one-hot m3 projection."""
+    return _table_tensor(tables, "m3", tables.dim_out, dtype, device).T
+
+
+def tp_fused(
+    Y: torch.Tensor,
+    h_send: torch.Tensor,
+    R: torch.Tensor,
+    spec: TPSpec,
+    tables: TPTables | None = None,
+) -> torch.Tensor:
+    """Fused sparse-table formulation: one gather per operand and one
+    matmul.  [E, k, dim_out]."""
+    t = tables or build_tp_tables(spec)
+    return tp_contrib(Y, h_send, R, t) @ cg_scatter_matrix(
+        t, h_send.dtype, h_send.device)

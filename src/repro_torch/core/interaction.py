@@ -2,9 +2,12 @@
 
     A_i = (1 / avg_num_neighbors) * sum_{j in N(i)} TP(Y_ji, h_j, R_ji)
 
-Port of the spec half of the JAX package's ``core/interaction.py``.  Every
-impl shares one signature, bound to an :class:`InteractionSpec` by the
-registry:
+Port of the JAX package's ``core/interaction.py``: the spec, and the two
+plain-torch formulations, :func:`interaction_ref` (dense TP messages, then
+the receiver sum) and :func:`interaction_fused` (the sum taken in the nnz
+basis; its double VJP is the second-order rule of the interaction backward
+kernel).  Every registered impl shares one signature, bound to an
+:class:`InteractionSpec` by the registry:
 
     fn(Y, h_node, R, senders, receivers, edge_mask, *, blocking=None) -> A
 
@@ -16,9 +19,18 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.kernels import registry
 
-from .channelwise_tp import TPSpec
+from .channelwise_tp import (
+    TPSpec,
+    TPTables,
+    build_tp_tables,
+    cg_scatter_matrix,
+    tp_contrib,
+    tp_ref,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,3 +47,61 @@ class InteractionSpec:
 def resolve_interaction(name: str, spec: InteractionSpec):
     """Resolve an interaction impl by name through ``kernels.registry``."""
     return registry.resolve("interaction", name, spec)
+
+
+def aggregate_edge_messages(
+    msgs: torch.Tensor,       # [E, k, d] per-edge messages (any basis)
+    receivers: torch.Tensor,  # [E] int
+    edge_mask: torch.Tensor,  # [E] bool
+    n_atoms: int,
+    spec: InteractionSpec,
+) -> torch.Tensor:
+    """The aggregation tail every decomposed interaction path shares: mask
+    -> sum over receivers -> /avg_num_neighbors."""
+    msgs = msgs * edge_mask.to(msgs.dtype)[:, None, None]
+    out = msgs.new_zeros((n_atoms,) + msgs.shape[1:])
+    return out.index_add(0, receivers.long(), msgs) / spec.avg_num_neighbors
+
+
+def interaction_ref(
+    Y: torch.Tensor,          # [E, dim_sh]
+    h_node: torch.Tensor,     # [N, k, dim_h]
+    R: torch.Tensor,          # [E, n_paths, k]
+    senders: torch.Tensor,    # [E] int
+    receivers: torch.Tensor,  # [E] int
+    edge_mask: torch.Tensor,  # [E] bool
+    *,
+    spec: InteractionSpec,
+    blocking=None,
+) -> torch.Tensor:
+    """Oracle: e3nn-style TP -> [E, k, d_out] messages -> receiver sum."""
+    del blocking
+    msgs = tp_ref(Y, h_node[senders.long()], R, spec.tp)
+    return aggregate_edge_messages(msgs, receivers, edge_mask, h_node.shape[0], spec)
+
+
+def interaction_fused(
+    Y: torch.Tensor,
+    h_node: torch.Tensor,
+    R: torch.Tensor,
+    senders: torch.Tensor,
+    receivers: torch.Tensor,
+    edge_mask: torch.Tensor,
+    *,
+    spec: InteractionSpec,
+    tables: TPTables | None = None,
+    blocking=None,
+) -> torch.Tensor:
+    """nnz-basis aggregation: the [E, k, nnz] contributions are summed over
+    receivers and projected to dim_out per atom, never per edge."""
+    del blocking
+    t = tables if tables is not None else build_tp_tables(spec.tp)
+    # index_select, whose autodiff is an index_add_ (not PyTorch's sort-based
+    # indexing backward): this twin is differentiated twice in training
+    h_send = h_node.index_select(0, senders.long())
+    contrib = tp_contrib(Y, h_send, R, t)                     # [E, k, nnz]
+    contrib = contrib * edge_mask.to(contrib.dtype)[:, None, None]
+    pre = contrib.new_zeros((h_node.shape[0],) + contrib.shape[1:])
+    pre = pre.index_add(0, receivers.long(), contrib)         # [N, k, nnz]
+    A = pre @ cg_scatter_matrix(t, pre.dtype, pre.device)     # [N, k, d_out]
+    return A / spec.avg_num_neighbors

@@ -12,7 +12,11 @@ Structure per interaction layer t:
   7. readout: layer < last: linear on invariant block; last: MLP
 
 Total energy  E = sum_i (E0_{z_i} + sum_t readout_t(h_i^t));
-forces  F = -dE/dr  via ``torch.autograd.grad`` (first order only).
+forces  F = -dE/dr  via ``torch.autograd.grad``.  Serving takes them
+detached (:func:`mace_energy_forces`); training keeps their graph
+(:func:`energy_forces_graph`, ``create_graph=True``), so the forces term of
+:func:`weighted_loss` makes every step a grad-of-grad, whose second order
+runs through the kernel ops' plain twins (``kernels/*/ops.py``).
 
 Batch layout (static shapes; padding masked) is the JAX package's:
 species [N], positions [N, 3], node_mask [N], senders/receivers/edge_mask
@@ -28,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.bridge import flatten
 from repro_torch.data.blocking import blocking_from_batch
 from repro_torch.kernels.registry import resolve
 
@@ -233,6 +238,28 @@ def mace_energy(
     return out.index_add(0, graph_id, site_energy)
 
 
+def _energy_forces(params, cfg, batch, n_graphs, create_graph: bool):
+    pos = batch["positions"].detach().requires_grad_(True)
+    energy = mace_energy(
+        params, cfg,
+        batch["species"], pos, batch["node_mask"],
+        batch["senders"], batch["receivers"], batch["edge_mask"],
+        batch["graph_id"], n_graphs, blocking=blocking_from_batch(batch),
+    )
+    (grad,) = torch.autograd.grad(energy.sum(), pos, create_graph=create_graph)
+    return energy, -grad * batch["node_mask"].to(grad.dtype)[:, None]
+
+
+def energy_forces_graph(
+    params: Params, cfg: MaceConfig, batch: Dict[str, torch.Tensor], n_graphs: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(energy [G], forces [N, 3]) with their graph kept: forces come from
+    ``torch.autograd.grad(..., create_graph=True)``, so both can be
+    differentiated again with respect to the parameters (the training
+    loss).  Needs autograd enabled."""
+    return _energy_forces(params, cfg, batch, n_graphs, create_graph=True)
+
+
 def mace_energy_forces(
     params: Params, cfg: MaceConfig, batch: Dict[str, torch.Tensor], n_graphs: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -242,15 +269,37 @@ def mace_energy_forces(
     ``create_graph``; autograd is switched on here, so the call works from
     inside ``torch.no_grad()`` too (never call it under
     ``torch.inference_mode()``, which forbids autograd)."""
-    blocking = blocking_from_batch(batch)
     with torch.enable_grad():
-        pos = batch["positions"].detach().requires_grad_(True)
-        energy = mace_energy(
-            params, cfg,
-            batch["species"], pos, batch["node_mask"],
-            batch["senders"], batch["receivers"], batch["edge_mask"],
-            batch["graph_id"], n_graphs, blocking=blocking,
-        )
-        (grad,) = torch.autograd.grad(energy.sum(), pos)
-    forces = -grad * batch["node_mask"].to(grad.dtype)[:, None]
+        energy, forces = _energy_forces(params, cfg, batch, n_graphs, create_graph=False)
     return energy.detach(), forces
+
+
+def weighted_loss(
+    params: Params,
+    cfg: MaceConfig,
+    batch: Dict[str, torch.Tensor],
+    n_graphs: int,
+    energy_weight: float = 1.0,
+    forces_weight: float = 100.0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Paper §5.2's weighted (energy, forces) loss, differentiable with
+    respect to the parameters: (loss, {"loss", "e_rmse", "f_rmse"})."""
+    energy, forces = energy_forces_graph(params, cfg, batch, n_graphs)
+    nmask = batch["node_mask"].to(energy.dtype)
+    nat = torch.clamp(
+        energy.new_zeros((n_graphs,)).index_add(0, batch["graph_id"].long(), nmask),
+        min=1.0,
+    )
+    gmask = (nat > 0.5).to(energy.dtype)
+    e_err = ((energy - batch["energy"]) / nat) ** 2 * gmask
+    f_err = torch.sum((forces - batch["forces"]) ** 2, dim=-1) * nmask
+    n_g = torch.clamp(torch.sum(gmask), min=1.0)
+    n_at = torch.clamp(torch.sum(nmask), min=1.0)
+    loss = energy_weight * torch.sum(e_err) / n_g + forces_weight * torch.sum(
+        f_err) / (3.0 * n_at)
+    return loss, {"loss": loss, "e_rmse": torch.sqrt(torch.sum(e_err) / n_g),
+                  "f_rmse": torch.sqrt(torch.sum(f_err) / (3.0 * n_at))}
+
+
+def param_count(params: Params) -> int:
+    return sum(int(v.numel()) for v in flatten(params).values())

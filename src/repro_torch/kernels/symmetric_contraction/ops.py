@@ -8,8 +8,13 @@ whose backward is the dedicated backward kernel: the saved tensors are
 exactly the kernel's inputs ``(A_t, W_t)``, and ``dW_t`` flows back through
 the plain-torch gather into the per-``(L, nu)`` weights with no custom code.
 
-The backward is ``once_differentiable``: a grad-of-grad (forces inside a
-training loss) raises until the training slice adds the second-order twin.
+Second order (forces inside the training loss make every step a
+grad-of-grad): the backward kernel is itself an ``autograd.Function``
+(:class:`_SymconBwdOp`) whose derivative is the double VJP of the plain
+twin ``kernel.symcon_plain`` (the port of ``symcon_xla_raw``), as the JAX
+package's ``_symcon_bwd_op`` takes it in XLA.  First order runs the
+hand-written kernels; only the derivative *of* the backward goes through
+the twin.  A third order raises.
 """
 from __future__ import annotations
 
@@ -17,11 +22,36 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from repro_torch.core.symmetric_contraction import SymConSpec
+from repro_torch.kernels import refuse_third_order
 
-from .kernel import gather_weights, symcon_bwd, symcon_fwd
+from .kernel import gather_weights, symcon_bwd, symcon_fwd, symcon_plain
+
+
+class _SymconBwdOp(torch.autograd.Function):
+    """``(A_t, W_t, G_t) -> (dA_t, dW_t)``: the backward kernel, whose own
+    derivative is the double VJP of ``symcon_plain``."""
+
+    @staticmethod
+    def forward(ctx, A_t, W_t, G_t, spec):
+        ctx.spec = spec
+        ctx.save_for_backward(A_t, W_t, G_t)
+        return symcon_bwd(A_t, W_t, G_t, spec)
+
+    @staticmethod
+    def backward(ctx, ddA, ddW):
+        refuse_third_order("symcon backward")
+        spec = ctx.spec
+        with torch.enable_grad():
+            a, w, g = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+            dA, dW = torch.autograd.grad(symcon_plain(a, w, spec), (a, w), g,
+                                         create_graph=True)
+            da, dw, dg = torch.autograd.grad((dA, dW), (a, w, g), (ddA, ddW),
+                                             allow_unused=True)
+        return (torch.zeros_like(a) if da is None else da,
+                torch.zeros_like(w) if dw is None else dw,
+                torch.zeros_like(g) if dg is None else dg, None)
 
 
 class _SymconOp(torch.autograd.Function):
@@ -34,10 +64,9 @@ class _SymconOp(torch.autograd.Function):
         return symcon_fwd(A_t, W_t, spec)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         A_t, W_t = ctx.saved_tensors
-        dA, dW = symcon_bwd(A_t, W_t, g.contiguous(), ctx.spec)
+        dA, dW = _SymconBwdOp.apply(A_t, W_t, g.contiguous(), ctx.spec)
         return dA, dW, None
 
 

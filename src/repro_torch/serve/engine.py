@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.bridge import params_to
+from repro_torch.bridge import params_to, resolve_device
 from repro_torch.core.mace import MaceConfig, mace_energy_forces
 from repro_torch.data.collate import BinShape, collate_bin
 from repro_torch.data.molecules import Molecule
@@ -28,17 +28,6 @@ from repro_torch.kernels import registry
 from .buckets import bucket_key
 
 __all__ = ["ServeEngine", "make_serve_engine", "resolve_device"]
-
-
-def resolve_device(device: Optional[Any]) -> torch.device:
-    """``None`` -> the CUDA card, and an error when there is none."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available: the serving path runs on the GPU; pass "
-            "device='cpu' to run the plain PyTorch versions on the CPU"
-        )
-    return dev
 
 
 class ServeEngine:

@@ -1,0 +1,229 @@
+"""Trainer: the epoch loop over the sequential engine, with checkpoints.
+
+Port of the JAX package's ``train/train_loop.py`` at a fixed rank count:
+the balanced sampler (Algorithm 1 per epoch) or the fixed-count baseline,
+numpy collation driven through ``data.prefetch.PrefetchPipeline``
+(``TrainerConfig.prefetch`` sets the lookahead; 0 runs the same path
+inline), the sequential engine (weighted loss with forces, rank-mean
+gradients, clip + AdamW), EMA, periodic atomic checkpoints and resume
+(params, optimizer state, EMA and the sampler cursor).
+``simulate_failure_at`` lets a test kill the loop mid-epoch to prove that a
+restart equals an uninterrupted run.
+
+The trainer runs on the CUDA card unless it is given ``device="cpu"``,
+where every kernel wrapper takes its plain PyTorch version.  The initial
+parameters may be passed in (a test hands it the JAX package's, bridged);
+otherwise they are drawn from ``seed`` with a ``torch.Generator``, which
+cannot reproduce the JAX package's ``jax.random`` draws.
+
+Not ported: elastic rescale, ``ElasticTrainer``, the heartbeat, the step
+watchdog, the fault plan, the shard_map and multi-host engines, gradient
+compression, and the autotuned ``"auto"`` impls.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.bridge import params_to, resolve_device
+from repro_torch.core.mace import MaceConfig, init_mace
+from repro_torch.data.collate import BinShape
+from repro_torch.data.molecules import SyntheticCFMDataset
+from repro_torch.data.prefetch import PrefetchPipeline
+from repro_torch.data.sampler import BalancedBatchSampler, FixedCountSampler, SamplerState
+
+from .checkpoint import latest_step, read_meta, restore_checkpoint, save_checkpoint
+from .engine import SequentialEngine
+from .optimizer import EMA, adamw, chain, clip_by_global_norm
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    capacity: int = 512
+    edge_factor: int = 48
+    max_graphs: int = 64
+    n_ranks: int = 1                 # logical DP ranks (bins per step)
+    lr: float = 5e-3
+    weight_decay: float = 0.0
+    clip_norm: float = 10.0
+    ema_decay: float = 0.99
+    energy_weight: float = 1.0
+    forces_weight: float = 100.0
+    prefetch: int = 0                # async collate lookahead depth (0 = inline)
+    # edge blocking tile shape (data.blocking); block_n must match
+    # MaceConfig.interaction_block_n
+    block_n: int = 32
+    block_e: int = 128
+    fixed_graphs_per_batch: int = 8   # baseline sampler's PyG-style count
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 50
+
+
+class Trainer:
+    def __init__(
+        self,
+        mace_cfg: MaceConfig,
+        tcfg: TrainerConfig,
+        dataset: SyntheticCFMDataset,
+        *,
+        sampler: str = "balanced",
+        seed: int = 0,
+        params: Optional[Dict[str, Any]] = None,
+        device: Optional[Any] = None,
+    ):
+        self.device = resolve_device(device)
+        self.mace_cfg = mace_cfg
+        self.tcfg = tcfg
+        self.dataset = dataset
+        self.bin_shape = BinShape.for_capacity(
+            tcfg.capacity, tcfg.edge_factor, tcfg.max_graphs,
+            block_n=tcfg.block_n, block_e=tcfg.block_e,
+        )
+        if sampler == "balanced":
+            self.sampler = BalancedBatchSampler(
+                dataset.sizes, tcfg.capacity, tcfg.n_ranks, seed=seed)
+        elif sampler == "fixed":
+            self.sampler = FixedCountSampler(
+                dataset.sizes, graphs_per_batch=tcfg.fixed_graphs_per_batch,
+                n_ranks=tcfg.n_ranks, seed=seed,
+            )
+        else:
+            raise ValueError(f"unknown sampler {sampler!r}; use 'balanced' or 'fixed'")
+
+        self.optimizer = chain(
+            clip_by_global_norm(tcfg.clip_norm),
+            adamw(tcfg.lr, weight_decay=tcfg.weight_decay),
+        )
+        self.ema = EMA(tcfg.ema_decay)
+        if params is None:
+            params = init_mace(mace_cfg, torch.Generator().manual_seed(seed))
+        self.params = params_to(params, self.device)
+        self.opt_state = self.optimizer.init(self.params)
+        self.ema_params = self.ema.init(self.params)
+        self.global_step = 0
+        self.sampler_state = SamplerState(epoch=0, cursor=0)
+        self.engine = SequentialEngine(mace_cfg, tcfg, self.optimizer,
+                                       tcfg.max_graphs, self.device)
+        # one static tile geometry shared by the data pipeline and the kernel
+        if self.engine.with_blocking and (
+            self.bin_shape.block_n != mace_cfg.interaction_block_n
+        ):
+            raise ValueError(
+                f"BinShape.block_n={self.bin_shape.block_n} != "
+                f"MaceConfig.interaction_block_n={mace_cfg.interaction_block_n}"
+            )
+
+    @property
+    def telemetry(self):
+        return self.engine.telemetry
+
+    # -------------------------- checkpoints --------------------------------
+
+    def _state(self):
+        return {"params": self.params, "opt_state": self.opt_state,
+                "ema": self.ema_params}
+
+    def save(self):
+        if not self.tcfg.ckpt_dir:
+            return
+        save_checkpoint(
+            self.tcfg.ckpt_dir, self.global_step, self._state(),
+            meta={"sampler": self.sampler_state.to_dict(),
+                  "n_ranks": self.engine.n_ranks, "lineage": []},
+        )
+
+    def maybe_restore(self) -> bool:
+        d = self.tcfg.ckpt_dir
+        if not d or latest_step(d) is None:
+            return False
+        _, meta = read_meta(d)
+        ckpt_ranks = int(meta.get("n_ranks", self.engine.n_ranks))
+        if ckpt_ranks != self.engine.n_ranks or meta.get("lineage"):
+            raise ValueError(
+                f"checkpoint in {d} was written at n_ranks={ckpt_ranks} (or "
+                f"mid-rescale); this trainer runs n_ranks={self.engine.n_ranks} "
+                "and the port does not rescale"
+            )
+        # restore may fall back to an older committed step (checksum
+        # mismatch): track the step and meta it returns
+        step, state, meta = restore_checkpoint(d, self._state())
+        self.params = state["params"]
+        self.opt_state = state["opt_state"]
+        self.ema_params = state["ema"]
+        self.global_step = step
+        self.sampler_state = SamplerState.from_dict(meta["sampler"])
+        return True
+
+    # ------------------------------ loop ----------------------------------
+
+    def _fetch_batch(self, rank_bins):
+        """Host side of one step, on the prefetch producer thread:
+        materialise the molecules and collate them to numpy."""
+        mols_per_rank = [[self.dataset.get(i) for i in b] for b in rank_bins]
+        return self.engine.collate(mols_per_rank, self.bin_shape)
+
+    def run_epoch(
+        self,
+        history,
+        *,
+        max_steps: Optional[int] = None,
+        simulate_failure_at: Optional[int] = None,
+    ) -> bool:
+        """Run the rest of the current epoch (from the sampler cursor)
+        through the prefetch pipeline: collation of step t+1 overlaps the
+        device executing step t when ``tcfg.prefetch >= 1``.  Returns True
+        when ``max_steps`` was reached (the run should stop)."""
+        items = self.sampler.step_iter(self.sampler_state)
+        if max_steps is not None:
+            # bound the producer's lookahead too: no collating (and then
+            # discarding) batches past the stop point
+            remaining = max_steps - self.global_step
+            if remaining <= 0:
+                return True
+            items = itertools.islice(items, remaining)
+        stop = False
+        with PrefetchPipeline(items, self._fetch_batch,
+                              depth=self.tcfg.prefetch) as pipeline:
+            for item in pipeline:
+                host_batches, host_stats = item.batch
+                batches = self.engine.to_device(host_batches)
+                self.params, self.opt_state, metrics = self.engine.step(
+                    self.params, self.opt_state, batches, self.global_step)
+                self.ema_params = self.ema.update(
+                    self.ema_params, self.params, self.global_step)
+                self.global_step += 1
+                self.sampler_state.cursor += 1
+                self.engine.telemetry.record_host(
+                    item.collate_s, item.wait_s, host_stats.get("block_s", 0.0))
+                history.append({k: float(v) for k, v in metrics.items()})
+                if simulate_failure_at is not None and self.global_step >= simulate_failure_at:
+                    raise RuntimeError("simulated node failure")
+                if self.tcfg.ckpt_every and self.global_step % self.tcfg.ckpt_every == 0:
+                    self.save()
+                if max_steps and self.global_step >= max_steps:
+                    stop = True
+                    break
+        # an early exit drains in-flight batches but never a producer error
+        pipeline.raise_pending()
+        return stop
+
+    def train(
+        self,
+        n_epochs: int = 1,
+        *,
+        max_steps: Optional[int] = None,
+        simulate_failure_at: Optional[int] = None,
+    ) -> Dict[str, Any]:
+        history = []
+        t_start = time.perf_counter()
+        while self.sampler_state.epoch < n_epochs:
+            if self.run_epoch(history, max_steps=max_steps,
+                              simulate_failure_at=simulate_failure_at):
+                break
+            self.sampler_state = SamplerState(self.sampler_state.epoch + 1, 0)
+        self.save()
+        return {"history": history, "wall": time.perf_counter() - t_start}

@@ -186,3 +186,123 @@ def test_wrappers_refuse_cpu_cuda_mix(dev):
     A = torch.zeros(8, 4, 8, device=dev)
     with pytest.raises(ValueError):
         sck.symcon_fwd(A, torch.zeros(8, sck.p_total_of(spec), 8), spec)
+
+
+# ---------------------------------------------------------------------------
+# second order and a training step
+# ---------------------------------------------------------------------------
+
+
+def _grad_close(got, want):
+    """The reference's gradient bound, 2e-4 of the largest magnitude: the
+    card's ``index_add_`` sums in no fixed order."""
+    for g, w in zip(got, want):
+        w = w.to(g.device)
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 2e-4 * scale
+
+
+def _second_order_symcon(device, spec, A, species, weights, G, c):
+    """Gradient with respect to (A, weights) of <c, d<B, G>/dA>."""
+    from repro_torch.kernels.symmetric_contraction.ops import symcon_cuda
+
+    a = A.to(device).requires_grad_(True)
+    w = {k: v.to(device).requires_grad_(True) for k, v in weights.items()}
+    B = symcon_cuda(a, species.to(device), w, spec)
+    (da,) = torch.autograd.grad((B * G.to(device)).sum(), a, create_graph=True)
+    return torch.autograd.grad((da * c.to(device)).sum(), [a, *w.values()])
+
+
+def test_symcon_grad_of_grad_matches_the_cpu(dev):
+    spec = CONFIG.symcon_spec()
+    rng = np.random.default_rng(11)
+    N, k, n_species = 100, CONFIG.channels, 5
+    cpu = torch.device("cpu")
+    A = _randn(rng, cpu, N, k, spec.in_spec.dim)
+    G = _randn(rng, cpu, N, k, spec.out_spec.dim)
+    c = _randn(rng, cpu, N, k, spec.in_spec.dim)
+    species = torch.from_numpy(rng.integers(0, n_species, N))
+    weights = {f"w_L{L}_nu{nu}": _randn(rng, cpu, *shp) for (L, nu), shp in
+               spec.weight_shapes(n_species, k).items()}
+    before = sck.SYMCON_FWD.launches, sck.SYMCON_BWD.launches
+    got = _second_order_symcon(dev, spec, A, species, weights, G, c)
+    torch.cuda.synchronize()
+    # the first order on the card is the kernels' (one launch each); the
+    # derivative of the backward is the plain twin's
+    assert (sck.SYMCON_FWD.launches, sck.SYMCON_BWD.launches) == (before[0] + 1, before[1] + 1)
+    _grad_close(got, _second_order_symcon(torch.device("cpu"), spec, A, species,
+                                          weights, G, c))
+
+
+def _second_order_interaction(device, spec, ops, blocking):
+    """Gradient with respect to (Y, h, R) of <c, d<A, g>/d(Y, h, R)>."""
+    from repro_torch.kernels.channelwise_tp.ops import interaction_cuda_op
+
+    ins = [ops[n].to(device).requires_grad_(True) for n in ("Y", "h", "R")]
+    ints = [ops[n].to(device) for n in ("senders", "receivers", "edge_mask")]
+    A = interaction_cuda_op(*ins, *ints, spec=spec,
+                            blocking={k: v.to(device) for k, v in blocking.items()})
+    first = torch.autograd.grad((A * ops["g"].to(device)).sum(), ins, create_graph=True)
+    scalar = sum((d * ops["c" + n].to(device)).sum() for d, n in zip(first, "YhR"))
+    return torch.autograd.grad(scalar, ins)
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+def test_interaction_grad_of_grad_matches_the_cpu(dev, layer):
+    """The paper's widths, a hub atom spanning tiles and a padding tile."""
+    from repro_torch.data.blocking import blocking_from_batch, blocking_to_batch
+
+    spec = CONFIG.interaction_spec_at(layer)
+    rng = np.random.default_rng(layer)
+    n_atoms, k = 64, CONFIG.channels
+    deg = rng.integers(8, 40, n_atoms)
+    deg[5] = 300
+    receivers = np.repeat(np.arange(n_atoms), deg).astype(np.int32)
+    rng.shuffle(receivers)
+    E = receivers.size
+    edge_mask = rng.random(E) < 0.95
+    blk = block_edges(receivers, edge_mask, n_atoms, block_n=32, block_e=128,
+                      n_tiles=static_n_tiles(E, n_atoms, 32, 128) + 1)
+    assert (blk.tile_base == 0).sum() >= 3 and not blk.valid[-blk.epb:].any()
+    cpu = torch.device("cpu")
+    tp = spec.tp
+    ops = dict(Y=_randn(rng, cpu, E, tp.y_spec.dim), h=_randn(rng, cpu, n_atoms, k, tp.h_spec.dim),
+               R=_randn(rng, cpu, E, tp.n_paths, k), g=_randn(rng, cpu, n_atoms, k, tp.out_spec.dim),
+               senders=torch.from_numpy(rng.integers(0, n_atoms, E).astype(np.int32)),
+               receivers=torch.from_numpy(receivers),
+               edge_mask=torch.from_numpy(edge_mask))
+    ops.update({"c" + n: torch.randn_like(ops[n]) for n in "YhR"})
+    blocking = {k: torch.from_numpy(np.asarray(v))
+                for k, v in blocking_from_batch(blocking_to_batch(blk)).items()}
+    before = tpk.TP_SCATTER_FWD.launches, tpk.TP_GATHER_BWD.launches
+    got = _second_order_interaction(dev, spec, ops, blocking)
+    torch.cuda.synchronize()
+    assert (tpk.TP_SCATTER_FWD.launches, tpk.TP_GATHER_BWD.launches) == (
+        before[0] + 1, before[1] + 1)
+    _grad_close(got, _second_order_interaction(cpu, spec, ops, blocking))
+
+
+def _kernel_launches():
+    return np.array([sck.SYMCON_FWD.launches, sck.SYMCON_BWD.launches,
+                     tpk.TP_SCATTER_FWD.launches, tpk.TP_GATHER_BWD.launches])
+
+
+@pytest.mark.parametrize("n_ranks", [1, 2])
+def test_training_step_launches_each_kernel_per_bin(dev, n_ranks):
+    """Per bin of a training step: each forward kernel once, each backward
+    kernel twice (inside the forces' ``autograd.grad`` and in the loss's
+    backward); the second order goes through the plain twins."""
+    import dataclasses
+
+    from repro_torch.data.molecules import SyntheticCFMDataset
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(CONFIG, channels=16)
+    tcfg = TrainerConfig(capacity=128, edge_factor=48, max_graphs=16, n_ranks=n_ranks)
+    tr = Trainer(cfg, tcfg, SyntheticCFMDataset(64, seed=0, max_atoms=64), device=dev)
+    before = _kernel_launches()
+    hist = tr.train(n_epochs=1, max_steps=1)["history"]
+    torch.cuda.synchronize()
+    assert np.isfinite(hist[0]["loss"])
+    assert (_kernel_launches() - before).tolist() == [2 * n_ranks, 4 * n_ranks,
+                                                      2 * n_ranks, 4 * n_ranks]

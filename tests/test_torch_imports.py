@@ -33,7 +33,10 @@ def test_port_modules_import_no_jax_and_no_repro():
             "repro_torch.kernels.symmetric_contraction.ops",
             "repro_torch.kernels.channelwise_tp.ops", "repro_torch.core.mace",
             "repro_torch.bridge", "repro_torch.configs.mace_cfm",
-            "repro_torch.data"]
+            "repro_torch.data", "repro_torch.data.sampler", "repro_torch.data.prefetch",
+            "repro_torch.train", "repro_torch.train.optimizer",
+            "repro_torch.train.checkpoint", "repro_torch.train.engine",
+            "repro_torch.train.train_loop", "repro_torch.launch.train_mace_cfm"]
     proc = _run("".join(f"import {m}\n" for m in mods) + _FORBIDDEN_CHECK)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

@@ -141,23 +141,40 @@ def test_force_equivariance():
     )
 
 
-def test_forces_run_under_no_grad_and_refuse_grad_of_grad():
-    batch, _ = _batch()
-    params = tinit(TCFG, torch.Generator().manual_seed(4))
-    G = SHAPE["max_graphs"]
-    with torch.no_grad():
-        e, f = tforces(params, TCFG, _torch_batch(batch), G)
-    assert torch.isfinite(e).all() and torch.isfinite(f).all()
-    assert not e.requires_grad and not f.requires_grad
-    # training's grad-of-grad waits for the second-order twins
+def _energy_gradient(create_graph=True):
     from repro_torch.core.mace import mace_energy
     from repro_torch.data.blocking import blocking_from_batch
 
+    batch, _ = _batch()
+    params = tinit(TCFG, torch.Generator().manual_seed(4))
     tb = _torch_batch(batch)
     pos = tb["positions"].clone().requires_grad_(True)
     energy = mace_energy(params, TCFG, tb["species"], pos, tb["node_mask"],
                          tb["senders"], tb["receivers"], tb["edge_mask"],
-                         tb["graph_id"], G, blocking=blocking_from_batch(tb))
-    (grad,) = torch.autograd.grad(energy.sum(), pos, create_graph=True)
-    with pytest.raises(RuntimeError):
-        grad.square().sum().backward()
+                         tb["graph_id"], SHAPE["max_graphs"],
+                         blocking=blocking_from_batch(tb))
+    (grad,) = torch.autograd.grad(energy.sum(), pos, create_graph=create_graph)
+    return pos, grad
+
+
+def test_second_order_of_the_energy_runs_through_the_kernel_ops():
+    """Training's forces term: a derivative of the forces, through the
+    kernel ops' plain twins."""
+    pos, grad = _energy_gradient()
+    (hess,) = torch.autograd.grad(grad.square().sum(), pos)
+    assert torch.isfinite(hess).all() and float(hess.abs().max()) > 0
+
+
+def test_forces_run_under_no_grad_and_refuse_grad_of_grad():
+    """Serving's forces run under ``no_grad`` and come out detached; a graph
+    through the second order (a third order) is refused.  The second order
+    itself runs (test above)."""
+    batch, _ = _batch()
+    params = tinit(TCFG, torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        e, f = tforces(params, TCFG, _torch_batch(batch), SHAPE["max_graphs"])
+    assert torch.isfinite(e).all() and torch.isfinite(f).all()
+    assert not e.requires_grad and not f.requires_grad
+    pos, grad = _energy_gradient()
+    with pytest.raises(RuntimeError, match="second derivatives"):
+        torch.autograd.grad(grad.square().sum(), pos, create_graph=True)

@@ -1,31 +1,37 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MACE serving and training paths on one NVIDIA
-GPU and check them.
+GPU, at every kernel impl and precision, and check them.
 
     python3 chip_smoke.py
 
 Run from the repository root (the script finds ``src/repro_torch`` next to
 itself).  Phases, none of them caught, so any failure exits nonzero:
 
-1. build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source and spec, with the spec's generated header: one build of the
-   symmetric-contraction source, one of the interaction source per
-   layer's tensor-product spec, all started together) and print ptxas's
-   register, stack and spill report per kernel; every kernel must have no
-   stack frame and no spills;
-2. hold each of the four kernels against its plain PyTorch version on the
-   card, at the shapes the 256-atom bucket of the paper's model gives it
-   (both interaction layers; receivers with a hub atom spanning several
-   tiles and fully masked padding tiles), check that two launches of each
-   kernel give bit-identical outputs, and time both versions by CUDA events
-   per call (``ms`` and ``plain_ms``, the wrapper's host work included);
-   time the dense-U einsum baseline ``symcon_ref`` on the symmetric
-   contraction's inputs (``library_ms``: its einsums, and its
+1. build the CUDA kernels from ``src/repro_torch/csrc``: nine libraries, one
+   ``nvcc`` each, all started together (the symmetric-contraction source and
+   the interaction source for each layer's tensor-product spec, each at
+   fp32, bf16 and fp8, with the generated header of that spec and
+   precision), and print ptxas's register, stack and spill report per
+   kernel; every kernel must have no stack frame and no spills; then hold
+   each precision's operand rounding (``round_op``) against the plain
+   ``round_to``, bit for bit, on a table of edge cases and 100,000 random
+   values;
+2. hold each of the four kernels at each precision against its plain
+   PyTorch version on the card, at the shapes the 256-atom bucket of the
+   paper's model gives it (both interaction layers; receivers with a hub
+   atom spanning several tiles and fully masked padding tiles), check that
+   two launches of each kernel give bit-identical outputs and that a bf16
+   or fp8 launch does not give the fp32 one's, and time both versions by
+   CUDA events per call (``ms`` and ``plain_ms``, the wrapper's host work
+   included); time the dense-U einsum baseline ``symcon_ref`` on the
+   symmetric contraction's inputs (``library_ms``: its einsums, and its
    ``torch.autograd.grad`` for the backward) after checking that it
-   computes what the kernels compute; run all four kernels, checked the
-   same way, at the training capacity of 3,072 atoms too, on the edge
-   blocking of the training run's first bin (the interaction kernels at
-   both layers);
+   computes what the fp32 kernels compute; run all four kernels at every
+   precision, checked the same way, at the training capacity of 3,072 atoms
+   too, on the edge blocking of the training run's first bin (the
+   interaction kernels at both layers); and the interaction kernels as the
+   TP-only op ``tp_cuda`` launches them (the identity blocking, a tile per
+   128 edges), fp32, on the bin's 147,456 padded edges;
 3. start a full-width ``GraphServer`` (the paper's §5.2 widths, random
    weights from a seed, buckets of 64 and 256 atoms, 2 workers) and serve
    48 molecules of a skewed mix; every kernel's launch count over that run
@@ -37,28 +43,42 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    loss, ``e_rmse``, ``f_rmse`` and kernel launches, which must be 2/4/2/4
    for ``symcon_fwd``/``symcon_bwd``/``tp_scatter_fwd``/``tp_gather_bwd``
    per bin; every loss finite; the peak device memory;
-5. measure under ``torch.profiler``: serve the molecules once more for the
+5. the variants, each run with the launch counts set to 0 just before it
+   and read just after: serve the 48 molecules again at bf16 and at fp8
+   (energies and forces finite, within the reference's ``PRECISION_TOL`` of
+   the fp32 run's, L2 norm-relative, not bitwise equal to them, every
+   kernel launched on that precision's libraries); one 256-atom bin of
+   them without the edge blocking (the unblocked path) and with the
+   ``fused`` and ``ref`` impls, each against the blocked ``cuda`` path
+   within the kernel tolerance; 3 training steps at bf16 from phase 4's
+   parameters and bins (losses within 5e-2 relative of its first three,
+   not equal, 2/4/2/4 launches per bin on the bf16 libraries); 3 fp32 steps
+   with the interaction's fused backward against 3 with its kernel
+   backward, at capacity 1,024 (losses within 5e-4);
+6. measure under ``torch.profiler``: serve the molecules once more for the
    card's busy and idle share; time each kernel's own device time per
    launch on phase 2's inputs (``device_ms``), with its share of its bound
    per layer, and at 3,072 atoms with the L2 cache flushed before each
    launch; profile one more training step (device-op breakdown, idle
    share, each kernel's device time in the step beside its launches
    recorded and made);
-6. checkpoint the trainer after its last step and restore it into a fresh
+7. checkpoint the trainer after its last step and restore it into a fresh
    one: parameters, optimizer state and EMA bit-identical;
-7. compare with the CPU (plain versions): a few served molecules'
+8. compare with the CPU (plain versions): a few served molecules'
    energies and forces, and a 3-step training trajectory at capacity 256
    from the same parameters over the same bins (each step's loss,
    gradients and update from the CPU's state; then the card's own
    trajectory: its losses, and its final parameters wherever Adam's
    update is well conditioned);
-8. report: the card's name and power limit, one JSON line of kernel
-   numbers, and last a JSON line with ``"ok": true``.
+9. report: the card's name and power limit, one JSON line of kernel
+   numbers (each kernel at each precision, and the identity-blocked
+   interaction kernels), and last a JSON line with ``"ok": true``.
 
 Without a CUDA device it exits with code 2 before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import itertools
 import json
@@ -75,14 +95,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.bridge import unflatten  # noqa: E402
+from repro_torch.bridge import params_to, unflatten  # noqa: E402
 from repro_torch.configs.mace_cfm import CONFIG  # noqa: E402
-from repro_torch.core.mace import init_mace  # noqa: E402
+from repro_torch.core.mace import init_mace, mace_energy_forces  # noqa: E402
 from repro_torch.core.symmetric_contraction import symcon_ref  # noqa: E402
 from repro_torch.data.blocking import EdgeBlocking, block_edges, blocking_from_batch  # noqa: E402
+from repro_torch.data.collate import collate_bin  # noqa: E402
 from repro_torch.data.molecules import SyntheticCFMDataset  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.kernels.channelwise_tp import kernel as tpk  # noqa: E402
+from repro_torch.kernels.channelwise_tp import ops as tp_ops  # noqa: E402
+from repro_torch.kernels.precision import PRECISIONS, round_to  # noqa: E402
 from repro_torch.kernels.symmetric_contraction import kernel as sck  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     GraphServer,
@@ -134,6 +157,27 @@ L2_FLUSH_BYTES = 256 << 20
 # a device time counts only when it averages over at least this share of
 # the launches made, and the JSON line carries both counts
 MIN_RECORDED = 0.9
+
+# the reference's bound per precision, L2 norm-relative (tests/test_precision.py:41)
+PRECISION_TOL = {"fp32": 2e-4, "bf16": 5e-2, "fp8": 4e-1}
+VARIANT_STEPS = 3           # training steps of each variant's run
+# the interaction's fused backward (bwd_impl="fused": autograd through
+# interaction_fused) keeps every [E, k, nnz] intermediate of both layers for
+# the loss's second order, which the chunked twin of bwd_impl="cuda" does
+# not; its run is cut to this capacity, a third of TRAIN_ATOMS, and prints
+# its peak memory
+FUSED_BWD_CAPACITY = 1024
+FUSED_BWD_PER_BIN = dict(PER_BIN, tp_gather_bwd=0)  # no backward kernel
+FUSED_BWD_LOSS_RTOL = 5e-4  # as TRAIN_LOSS_RTOL: one function, two backwards
+# the operand rounding of the bf16 and fp8 builds against round_to, bit for
+# bit: zeros, fp8's largest value 448 and its NaN threshold above 464, the
+# infinities and NaNs, ties (to even) of both types, subnormals of e4m3, and
+# bf16's overflow to infinity; then ROUND_RANDOM values over 22 binades
+ROUND_TABLE = [0.0, -0.0, 448.0, 449.0, 464.0, -464.0, 465.0, -465.0, 480.0, 1000.0,
+               float("inf"), float("-inf"), float("nan"), -float("nan"),
+               1.0625, 1.1875, -1.0625, 1 + 2 ** -8, 1 + 3 * 2 ** -8,
+               2 ** -10, 1.5 * 2 ** -9, 1.25 * 2 ** -9, 2 ** -7 * 1.0625, 3.3e38, -3.4e38]
+ROUND_RANDOM = 100_000
 
 KERNELS = {
     "symcon_fwd": dict(kernel=sck.SYMCON_FWD, symbol="symcon_fwd_kernel",
@@ -295,8 +339,11 @@ def _bucket_blocking(rng, bucket):
 def _kernel_calls(dev, rng, blk, N, layer):
     """The four kernels' calls at one interaction layer's shapes over ``N``
     atoms and the slots of the edge blocking ``blk``, on fresh random
-    inputs, each with its plain version, the bytes and operations its
-    inputs need, and (the symmetric contraction) its library baseline."""
+    inputs, at every precision, keyed by (kernel, precision): each with its
+    plain version at that precision, the bytes and operations its inputs
+    need (the same at every precision: the operands stay fp32), at fp32 the
+    symmetric contraction's library baseline, and at bf16 and fp8 the fp32
+    call on the same inputs."""
     T, bn, k = blk.n_atom_tiles, blk.block_n, CONFIG.channels
     E_p = blk.perm.shape[0]
     n_valid = int(blk.valid.sum())
@@ -320,55 +367,70 @@ def _kernel_calls(dev, rng, blk, N, layer):
     G_a = randn(T * bn, d_a, k)
     slot_bytes = 4 * n_valid * (d_sh + (d_h + n_paths) * k) + 5 * E_p
     lib_fwd, lib_bwd = _symcon_library(A_t, W_t, G_t, spec)
-    return {
-        "symcon_fwd": dict(
-            run=lambda: sck.symcon_fwd(A_t, W_t, spec),
-            plain=lambda: sck.symcon_plain(A_t, W_t, spec),
-            library=lib_fwd, bytes=fwd_bytes, ops=fwd_ops),
-        "symcon_bwd": dict(
-            run=lambda: sck.symcon_bwd(A_t, W_t, G_t, spec),
-            plain=lambda: sck.symcon_bwd_plain(A_t, W_t, G_t, spec),
-            library=lib_bwd, bytes=bwd_bytes, ops=bwd_ops),
-        "tp_scatter_fwd": dict(
-            run=lambda: tpk.tp_scatter(Y_b, h_b, R_b, local, valid, tp, **kw),
-            plain=lambda: tpk.tp_scatter_plain(Y_b, h_b, R_b, local, valid, tp, **kw),
-            bytes=slot_bytes + 4 * T * bn * d_a * k, ops=4 * n_valid * k * n_ent),
-        "tp_gather_bwd": dict(
-            run=lambda: tpk.tp_gather_bwd(G_a, Y_b, h_b, R_b, local, valid, tp, **kw),
-            plain=lambda: tpk.tp_gather_bwd_plain(
-                G_a, Y_b, h_b, R_b, local, valid, tp, **kw),
-            bytes=(slot_bytes + 4 * rows_needed * d_a * k
-                   + 4 * E_p * (d_sh + (d_h + n_paths) * k)),
-            ops=11 * n_valid * k * n_ent),
-    }
+
+    def at(p):
+        return {
+            "symcon_fwd": dict(
+                run=lambda: sck.symcon_fwd(A_t, W_t, spec, p),
+                plain=lambda: sck.symcon_plain(A_t, W_t, spec, p),
+                library=lib_fwd, bytes=fwd_bytes, ops=fwd_ops),
+            "symcon_bwd": dict(
+                run=lambda: sck.symcon_bwd(A_t, W_t, G_t, spec, p),
+                plain=lambda: sck.symcon_bwd_plain(A_t, W_t, G_t, spec, p),
+                library=lib_bwd, bytes=bwd_bytes, ops=bwd_ops),
+            "tp_scatter_fwd": dict(
+                run=lambda: tpk.tp_scatter(Y_b, h_b, R_b, local, valid, tp, **kw,
+                                           precision=p),
+                plain=lambda: tpk.tp_scatter_plain(Y_b, h_b, R_b, local, valid, tp, **kw,
+                                                   precision=p),
+                bytes=slot_bytes + 4 * T * bn * d_a * k, ops=4 * n_valid * k * n_ent),
+            "tp_gather_bwd": dict(
+                run=lambda: tpk.tp_gather_bwd(G_a, Y_b, h_b, R_b, local, valid, tp, **kw,
+                                              precision=p),
+                plain=lambda: tpk.tp_gather_bwd_plain(
+                    G_a, Y_b, h_b, R_b, local, valid, tp, **kw, precision=p),
+                bytes=(slot_bytes + 4 * rows_needed * d_a * k
+                       + 4 * E_p * (d_sh + (d_h + n_paths) * k)),
+                ops=11 * n_valid * k * n_ent),
+        }
+
+    fp32 = at("fp32")
+    calls = {(name, "fp32"): c for name, c in fp32.items()}
+    for p in PRECISIONS[1:]:
+        for name, c in at(p).items():
+            c.pop("library", None)  # symcon_ref computes the fp32 function
+            calls[(name, p)] = dict(c, fp32=fp32[name]["run"])
+    return calls
 
 
 def check_kernels(dev):
-    """Phase 2 at the 256-atom bucket, both layers: rows summed over the
-    layers' calls, as one forward makes them."""
+    """Phase 2 at the 256-atom bucket, both layers, every precision: rows
+    summed over the layers' calls, as one forward makes them; keyed by
+    (kernel, precision)."""
     rng = np.random.default_rng(SEED)
     bucket = bucket_ladder(CAPACITIES, edge_factor=EDGE_FACTOR)[-1]
     blk = _bucket_blocking(rng, bucket)
-    calls = {name: [] for name in KERNELS}
+    calls = {}
     for layer in range(CONFIG.n_interactions):
-        for name, c in _kernel_calls(dev, rng, blk, bucket.max_nodes, layer).items():
-            calls[name].append(dict(c, layer=layer))
+        for key, c in _kernel_calls(dev, rng, blk, bucket.max_nodes, layer).items():
+            calls.setdefault(key, []).append(dict(c, layer=layer))
 
     results = {}
-    for name, cs in calls.items():
-        rows = [_check_call(name, f"layer {c['layer']}", c) for c in cs]
-        n_bytes = sum(r["bytes"] for r in rows)
-        n_ops = sum(r["ops"] for r in rows)
-        bound, bound_by = _bound_ms(n_bytes, n_ops)
-        library = [r["library_ms"] for r in rows]
-        results[name] = dict(
-            rows=rows, max_abs_err=max(r["err"] for r in rows),
-            ms=sum(r["ms"] for r in rows),
-            plain_ms=sum(r["plain_ms"] for r in rows),
-            bound_ms=bound, bound_by=bound_by,
-            library_ms=None if None in library else sum(library),
-        )
+    for (name, p), cs in calls.items():
+        rows = [_check_call(name, f"layer {c['layer']} {p}", c) for c in cs]
+        results[(name, p)] = _summed(rows)
     return results
+
+
+def _summed(rows):
+    """One kernel's rows (its calls of one forward) summed: times, the bound
+    of their summed work, the largest error."""
+    bound, bound_by = _bound_ms(sum(r["bytes"] for r in rows), sum(r["ops"] for r in rows))
+    library = [r["library_ms"] for r in rows]
+    return dict(rows=rows, max_abs_err=max(r["err"] for r in rows),
+                ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+                bound_ms=bound, bound_by=bound_by,
+                library_ms=None if None in library else sum(library))
 
 
 def _check_call(name, where, c):
@@ -386,6 +448,13 @@ def _check_call(name, where, c):
     print(f"kernel {name} {where}: two launches bit-identical={same}", flush=True)
     if not same:
         raise AssertionError(f"kernel {name} {where} is not deterministic")
+    if "fp32" in c:  # a reduced precision must change the result
+        ref = c["fp32"]()
+        if all(torch.equal(a, b) for a, b in zip(
+                got if isinstance(got, tuple) else (got,),
+                ref if isinstance(ref, tuple) else (ref,))):
+            raise AssertionError(f"kernel {name} {where} returned the fp32 kernel's "
+                                 "outputs bit for bit")
     ms = _time_ms(c["run"], reps=20)
     plain_ms = _time_ms(c["plain"], reps=3)
     bound, bound_by = _bound_ms(c["bytes"], c["ops"])
@@ -412,33 +481,98 @@ def _check_call(name, where, c):
 
 def check_training_size(dev, blk):
     """The four kernels at the training capacity (3,072 atoms), on the edge
-    blocking of the training run's first bin, checked and timed as in
-    ``check_kernels``: the interaction kernels at both layers, the
-    symmetric contraction (one spec for both layers) at one.  At this size
-    launch latency no longer hides the bound."""
+    blocking of the training run's first bin, at every precision, checked
+    and timed as in ``check_kernels``: the interaction kernels at both
+    layers, the symmetric contraction (one spec for both layers) at one.  At
+    this size launch latency no longer hides the bound."""
     rng = np.random.default_rng(SEED + 1)
-    out = {name: [] for name in KERNELS}
+    out = {}
     for layer in range(CONFIG.n_interactions):
-        for name, c in _kernel_calls(dev, rng, blk, TRAIN_ATOMS, layer).items():
+        for (name, p), c in _kernel_calls(dev, rng, blk, TRAIN_ATOMS, layer).items():
             if layer == 0 or name.startswith("tp_"):
-                out[name].append(_check_call(
-                    name, f"N={TRAIN_ATOMS} layer {layer}", c))
+                out.setdefault((name, p), []).append(_check_call(
+                    name, f"N={TRAIN_ATOMS} layer {layer} {p}", c))
     return out
+
+
+def _identity_calls(dev, rng, E, layer):
+    """The interaction kernels as ``tp_cuda`` launches them, over ``E``
+    random edges of one layer: the identity blocking of
+    ``tp_ops._identity_operands`` (a tile per 128 edges, each edge its own
+    row, every slot valid), fp32."""
+    k, tp = CONFIG.channels, CONFIG.tp_spec_at(layer)
+    d_sh, d_h, n_paths, d_out = tpk.spec_dims(tp)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    operands, tiles = tp_ops._identity_operands(
+        randn(E, d_sh), randn(E, k, d_h), randn(E, n_paths, k))
+    E_p = operands[0].shape[0]
+    G_t = randn(E_p, d_out, k)
+    n_ent = len(tpk.tp_entries(tp))
+    slot_bytes = 4 * E_p * (d_sh + (d_h + n_paths) * k) + 5 * E_p
+    return {
+        "tp_scatter_fwd": dict(
+            run=lambda: tpk.tp_scatter(*operands, tp, **tiles),
+            plain=lambda: tpk.tp_scatter_plain(*operands, tp, **tiles),
+            bytes=slot_bytes + 4 * E_p * d_out * k, ops=4 * E_p * k * n_ent),
+        "tp_gather_bwd": dict(
+            run=lambda: tpk.tp_gather_bwd(G_t, *operands, tp, **tiles),
+            plain=lambda: tpk.tp_gather_bwd_plain(G_t, *operands, tp, **tiles),
+            bytes=slot_bytes + 4 * E_p * d_out * k + 4 * E_p * (d_sh + (d_h + n_paths) * k),
+            ops=11 * E_p * k * n_ent),
+    }
+
+
+def check_identity_launch(dev, E):
+    """The identity-blocked launch of ``tp_cuda`` (the TP-only op and the
+    unblocked interaction) on ``E`` edges, the training bin's padded edge
+    count, both layers, fp32, checked and timed as in ``check_kernels``."""
+    rng = np.random.default_rng(SEED + 3)
+    out = {}
+    for layer in range(CONFIG.n_interactions):
+        for name, c in _identity_calls(dev, rng, E, layer).items():
+            out.setdefault(name, []).append(_check_call(
+                name, f"identity E={E} layer {layer}", c))
+    return out
+
+
+def check_rounding(dev):
+    """``round_op`` of each precision's symmetric-contraction build (the
+    rounding every bf16 and fp8 kernel applies to its loads) against the
+    plain ``round_to``, bit for bit, on ``ROUND_TABLE`` and
+    ``ROUND_RANDOM`` random values."""
+    rng = np.random.default_rng(SEED + 4)
+    x = np.concatenate([np.asarray(ROUND_TABLE, np.float32), (
+        rng.standard_normal(ROUND_RANDOM) * np.exp(rng.uniform(-14, 8, ROUND_RANDOM))
+    ).astype(np.float32)])
+    for p in PRECISIONS:
+        got = sck.round_on_card(torch.from_numpy(x).to(dev), CONFIG.symcon_spec(), p)
+        got = got.cpu().numpy().view(np.uint32)
+        want = round_to(torch.from_numpy(x), p).numpy().view(np.uint32)
+        bad = np.nonzero(got != want)[0]
+        print(f"rounding {p}: {x.size} values, {bad.size} differ from round_to "
+              f"(table: {[hex(v) for v in got[:len(ROUND_TABLE)]]})", flush=True)
+        if bad.size:
+            raise AssertionError(f"round_op at {p} differs from round_to at "
+                                 f"{[(float(x[i]), hex(got[i]), hex(want[i])) for i in bad[:8]]}")
 
 
 def time_kernels(results, training) -> None:
     """Each kernel's own device time per launch (``torch.profiler``) on
     phase 2's inputs, with its share of the bound per layer, and at the
-    training capacity, each launch finding its inputs outside the L2 cache.
+    training capacity (``training``: rows by key, the identity-blocked
+    launch's too), each launch finding its inputs outside the L2 cache.
     Run after the serving and training measurements: once the profiler has
     run in a process, later launches in it were slower (serving runs in
     PERF.md)."""
     reps = 20
-    for name, res in results.items():
+    for (name, p), res in results.items():
         per_layer, recorded = [], 0
         for layer, r in enumerate(res["rows"]):
             ms, seen = _device_ms(r["run"], KERNELS[name]["symbol"], reps)
-            print(f"kernel {name} layer {layer}: device_ms={ms:.4f} "
+            print(f"kernel {name} layer {layer} {p}: device_ms={ms:.4f} "
                   f"bound_ms={r['bound']:.4f} share_of_bound={r['bound'] / ms:.3f} "
                   f"launches_recorded={seen}/{reps}", flush=True)
             per_layer.append(ms)
@@ -449,7 +583,8 @@ def time_kernels(results, training) -> None:
                    device_launches_recorded=recorded,
                    device_launches_made=reps * len(per_layer))
     flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
-    for name, rows in training.items():
+    for key, rows in training.items():
+        name = key[0] if isinstance(key, tuple) else key
         for r in rows:
             ms, seen = _device_ms(r["run"], KERNELS[name]["symbol"], reps,
                                   before=lambda: flush.zero_())
@@ -462,7 +597,7 @@ def time_kernels(results, training) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 3-4: serve on the card, compare with the CPU
+# phases 3 and 8: serve on the card, compare with the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -480,22 +615,29 @@ def skewed_requests():
     return mols
 
 
-def serve(params, mols):
+def serve(params, mols, config=None):
+    """Serve ``mols`` through a ``GraphServer`` of ``config``, with the
+    launches of the run, every one of them on ``config.precision``'s
+    libraries."""
+    config = config or CONFIG
     cfg = ServeConfig(capacities=CAPACITIES, edge_factor=EDGE_FACTOR,
                       n_workers=2, max_wait_s=0.01)
     t0 = time.perf_counter()
-    server = GraphServer(CONFIG, params, cfg)  # device None: the CUDA card
+    server = GraphServer(config, params, cfg)  # device None: the CUDA card
     print(f"server warm in {time.perf_counter() - t0:.2f}s "
           f"(buckets {[b.max_nodes for b in server.buckets]})", flush=True)
-    for spec in KERNELS.values():
-        spec["kernel"].launches = 0
+    _reset_launches()
     futures = []
     for m in mols:
         futures.append(server.submit(m, timeout=60.0))
         time.sleep(0.001)  # a trickle, so waves form and mix
     results = [f.result(timeout=600.0) for f in futures]
     torch.cuda.synchronize()
-    launches = {name: spec["kernel"].launches for name, spec in KERNELS.items()}
+    launches = _launches()
+    if _launches(config.precision) != launches:
+        raise AssertionError(f"serving at {config.precision} launched "
+                             f"{_launches(config.precision)} of its {launches} launches "
+                             "on its own libraries")
     stats = server.stats()
     server.close()
     for m, r in zip(mols, results):
@@ -576,22 +718,35 @@ def compare_with_cpu(params, mols, results, buckets):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: training on the card
+# phase 4: training on the card
 # ---------------------------------------------------------------------------
 
 
-def _launches():
-    return {name: spec["kernel"].launches for name, spec in KERNELS.items()}
+def _launches(precision=None):
+    """Each kernel's launches since the last reset: all of them, or those
+    of ``precision``'s libraries."""
+    if precision is None:
+        return {name: spec["kernel"].launches for name, spec in KERNELS.items()}
+    tag = cuda_lib.precision_define(precision)
+    return {name: sum(n for header, n in spec["kernel"].launches_by_header.items()
+                      if tag in header)
+            for name, spec in KERNELS.items()}
 
 
-def _trainer(capacity, device, params=None, ckpt_dir=None):
+def _reset_launches():
+    for spec in KERNELS.values():
+        spec["kernel"].reset()
+
+
+def _trainer(capacity, device, params=None, ckpt_dir=None, **kernels):
     """``examples/train_mace_cfm.py``'s trainer at the paper's width: the
     balanced sampler over ``SyntheticCFMDataset(2000, seed=0,
     max_atoms=256)``, one rank, prefetch 1, ``max_graphs = capacity // 8``;
-    random weights from ``SEED`` unless ``params`` are given."""
+    random weights from ``SEED`` unless ``params`` are given; ``kernels``
+    are ``TrainerConfig``'s overrides of the model's kernel selection."""
     tcfg = TrainerConfig(capacity=capacity, edge_factor=EDGE_FACTOR,
                          max_graphs=max(16, capacity // 8), prefetch=1,
-                         ckpt_dir=ckpt_dir, ckpt_every=0)
+                         ckpt_dir=ckpt_dir, ckpt_every=0, **kernels)
     dataset = SyntheticCFMDataset(TRAIN_GRAPHS, seed=SEED, max_atoms=max(CAPACITIES))
     return Trainer(CONFIG, tcfg, dataset, seed=SEED, params=params, device=device)
 
@@ -628,9 +783,9 @@ def train_steps(tr):
         return out
 
     tr.engine.step = timed_step
-    for spec in KERNELS.values():
-        spec["kernel"].launches = 0
+    _reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     hist = tr.train(n_epochs=1, max_steps=TRAIN_STEPS)["history"]
     torch.cuda.synchronize()
     launches = _launches()
@@ -642,7 +797,9 @@ def train_steps(tr):
               f"atoms_per_s={r['atoms'] / r['ms'] * 1e3:.1f} launches={r['launches']}",
               flush=True)
     print(f"train: {len(hist)} steps at capacity {TRAIN_ATOMS}, "
-          f"peak_memory_allocated_gb={peak / 2**30:.2f} launches={launches}", flush=True)
+          f"peak_memory_allocated_gb={peak / 2**30:.2f} (of which "
+          f"{held / 2**30:.2f} held before the run: the parameters and phase 2's "
+          f"inputs) launches={launches}", flush=True)
     if len(hist) != TRAIN_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"training did not take {TRAIN_STEPS} finite steps: {hist}")
     for r in rows:
@@ -650,6 +807,143 @@ def train_steps(tr):
             raise AssertionError(f"a training step launched {r['launches']}, "
                                  f"expected {PER_BIN} for its one bin")
     return dict(history=hist, rows=rows, launches=launches, peak_bytes=peak)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the variants: precisions, the unblocked path, the other impls, the fused
+# backward
+# ---------------------------------------------------------------------------
+
+
+def _l2_rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+def serve_at_precisions(params, mols, fp32_results):
+    """Serve the same molecules at bf16 and at fp8: energies and forces
+    finite, within ``PRECISION_TOL`` (L2 norm-relative over all of them) of
+    the fp32 run's, not bitwise equal to them, every kernel launched on
+    that precision's libraries.  Returns {precision: launches}."""
+    e32 = np.array([r.energy for r in fp32_results])
+    f32 = np.concatenate([r.forces.ravel() for r in fp32_results])
+    out = {}
+    for p in PRECISIONS[1:]:
+        results, stats, launches, _ = serve(params, mols, dataclasses.replace(CONFIG, precision=p))
+        e = np.array([r.energy for r in results])
+        f = np.concatenate([r.forces.ravel() for r in results])
+        err_e, err_f = _l2_rel(e, e32), _l2_rel(f, f32)
+        same = np.array_equal(e, e32) and np.array_equal(f, f32)
+        print(f"serve {p}: {stats['served']} graphs graphs_per_s={stats['graphs_per_s']:.2f} "
+              f"energies L2-rel {err_e:.3e}, forces L2-rel {err_f:.3e} against fp32 "
+              f"(tol {PRECISION_TOL[p]:g}); bitwise equal to fp32={same}; "
+              f"launches={launches}", flush=True)
+        if max(err_e, err_f) > PRECISION_TOL[p] or same:
+            raise AssertionError(f"serving at {p} is not within its tolerance of fp32, "
+                                 "or is fp32 bit for bit")
+        missing = [name for name, n in launches.items() if n <= 0]
+        if missing:
+            raise AssertionError(f"serving at {p} launched no {missing}")
+        out[p] = launches
+    return out
+
+
+def check_paths_and_impls(dev, params, mols, bucket):
+    """One 256-atom bin of the served molecules through
+    ``mace_energy_forces``: collated without the ``blk_*`` arrays (the
+    unblocked path: the interaction kernels under the identity blocking)
+    against the blocked path, and the blocked bin with the ``fused`` and
+    ``ref`` impls (every kind) against ``cuda``, all at fp32, within the
+    kernel tolerance of the largest magnitude.  Returns the unblocked run's
+    launches."""
+    picked, n, e = [], 0, 0
+    for m in mols:
+        if (n + m.n_atoms <= bucket.max_nodes and e + m.n_edges <= bucket.max_edges
+                and len(picked) < bucket.max_graphs):
+            picked.append(m)
+            n, e = n + m.n_atoms, e + m.n_edges
+    dev_params = params_to(params, dev)
+    batches = {blocked: {k: torch.from_numpy(v).to(dev) for k, v in collate_bin(
+        picked, bucket, strict=True, with_blocking=blocked).items()}
+        for blocked in (True, False)}
+    G = bucket.max_graphs
+    e_b, f_b = mace_energy_forces(dev_params, CONFIG, batches[True], G)
+    _reset_launches()
+    e_u, f_u = mace_energy_forces(dev_params, CONFIG, batches[False], G)
+    torch.cuda.synchronize()
+    launches = _launches()
+    runs = {"unblocked": (e_u, f_u, launches)}
+    for impl in ("fused", "ref"):
+        cfg = dataclasses.replace(CONFIG, impl=impl, interaction_impl=impl)
+        _reset_launches()
+        e_i, f_i = mace_energy_forces(dev_params, cfg, batches[True], G)
+        torch.cuda.synchronize()
+        runs[impl] = (e_i, f_i, _launches())
+    for what, (e_x, f_x, made) in runs.items():
+        err, scale, ok = _compare((e_x, f_x), (e_b, f_b))
+        print(f"paths: {len(picked)} graphs, {n} atoms, {e} edges: {what} against the "
+              f"blocked cuda path max_abs_err={err:.3e} (tol {KERNEL_TOL:g}*max(1,{scale:.3g})) "
+              f"ok={ok} launches={made}", flush=True)
+        if not ok:
+            raise AssertionError(f"the {what} path disagrees with the blocked cuda path")
+    if any(v <= 0 for v in launches.values()):
+        raise AssertionError(f"the unblocked path launched {launches}")
+    if any(n for impl in ("fused", "ref") for n in runs[impl][2].values()):
+        raise AssertionError("the fused or ref impl launched a kernel")
+    return launches
+
+
+def _train_variant(what, tr, steps, per_bin, precision="fp32"):
+    """``steps`` steps of a trainer; every loss finite, each kernel launched
+    ``per_bin`` times a step on ``precision``'s libraries and nowhere else."""
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    hist = tr.train(n_epochs=1, max_steps=steps)["history"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, own = _launches(), _launches(precision)
+    losses = [h["loss"] for h in hist]
+    print(f"train {what}: {len(hist)} steps in {wall:.1f}s, losses={losses}, "
+          f"peak_memory_allocated_gb={torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"(held before the run {held / 2**30:.2f}) launches={launches}", flush=True)
+    want = {k: steps * v for k, v in per_bin.items()}
+    if len(hist) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train {what} did not take {steps} finite steps")
+    if own != want or launches != want:
+        raise AssertionError(f"train {what} launched {launches} ({own} at {precision}), "
+                             f"expected {want}")
+    return np.asarray(losses), own
+
+
+def train_variants(fp32_history):
+    """``VARIANT_STEPS`` training steps at bf16 (capacity 3,072, the same
+    parameters and bins as the fp32 run's first steps): losses finite,
+    within ``PRECISION_TOL["bf16"]`` relative of the fp32 losses and not
+    equal to them.  Then ``VARIANT_STEPS`` fp32 steps with the fused
+    interaction backward against ``bwd_impl="cuda"`` at
+    ``FUSED_BWD_CAPACITY``, from the same parameters and bins: losses
+    within ``FUSED_BWD_LOSS_RTOL``.  Returns the bf16 run's launches."""
+    l16, launches = _train_variant("bf16", _trainer(TRAIN_ATOMS, None, precision="bf16"),
+                                   VARIANT_STEPS, PER_BIN, "bf16")
+    l32 = np.asarray([h["loss"] for h in fp32_history[:VARIANT_STEPS]])
+    drift = np.abs(l16 - l32) / np.abs(l32)
+    print(f"train bf16 against fp32 losses {l32.tolist()}: relative drift {drift.tolist()} "
+          f"(tol {PRECISION_TOL['bf16']:g})", flush=True)
+    if drift.max() > PRECISION_TOL["bf16"] or drift.max() == 0.0:
+        raise AssertionError("bf16 training is not within its tolerance of fp32, or equal to it")
+    lc, _ = _train_variant(f"fp32 bwd_impl=cuda at capacity {FUSED_BWD_CAPACITY}",
+                           _trainer(FUSED_BWD_CAPACITY, None), VARIANT_STEPS, PER_BIN)
+    lf, _ = _train_variant(f"fp32 bwd_impl=fused at capacity {FUSED_BWD_CAPACITY}",
+                           _trainer(FUSED_BWD_CAPACITY, None, interaction_bwd_impl="fused"),
+                           VARIANT_STEPS, FUSED_BWD_PER_BIN)
+    err = float((np.abs(lf - lc) / np.abs(lc)).max())
+    print(f"train bwd_impl=fused against cuda: max relative loss difference {err:.3e} "
+          f"(tol {FUSED_BWD_LOSS_RTOL:g})", flush=True)
+    if err > FUSED_BWD_LOSS_RTOL:
+        raise AssertionError("the fused backward's losses differ from the cuda backward's")
+    return launches
 
 
 def profile_train_step(tr, step_ms):
@@ -814,6 +1108,71 @@ def compare_training_with_cpu():
                              "where Adam is well conditioned")
 
 
+def kernel_units():
+    """(label, (source, header)) of the nine kernel libraries: the
+    symmetric contraction's spec and both layers' tensor-product specs, each
+    at every precision."""
+    units = []
+    for p in PRECISIONS:
+        units += [(f"symcon {p}", u) for u in sck.build_units([CONFIG.symcon_spec()], [p])]
+        units += [(f"tp layer {layer} {p}", u)
+                  for layer in range(CONFIG.n_interactions)
+                  for u in tpk.build_units([CONFIG.tp_spec_at(layer)], [p])]
+    return units
+
+
+def kernel_entries(results, training, identity, launches, train, train_profile,
+                   variant_launches, bf16_training_launches, identity_launches):
+    """The ``kernels`` JSON line: each kernel at fp32 (the serving run's
+    launches, with its training-step numbers), at bf16 and fp8 (the
+    launches of the serving run at that precision; bf16 also the variant
+    training run's), and the identity-blocked interaction kernels (the
+    unblocked bin's launches)."""
+    entries = []
+    for name, spec in KERNELS.items():
+        common = dict(route="cuda", source=spec["source"], replaces=spec["replaces"])
+        for p in PRECISIONS:
+            res, rows = results[(name, p)], training[(name, p)]
+            entry = dict(
+                name=name if p == "fp32" else f"{name}_{p}", precision=p, **common,
+                launches=launches[name] if p == "fp32" else variant_launches[p][name],
+                max_abs_err=res["max_abs_err"], ms=res["ms"], plain_ms=res["plain_ms"],
+                bound_ms=res["bound_ms"], bound_by=res["bound_by"],
+                library_ms=res["library_ms"], device_ms=res["device_ms"],
+                per_layer_device_ms=res["per_layer_device_ms"],
+                per_layer_share_of_bound=res["per_layer_share_of_bound"],
+                device_launches_recorded=res["device_launches_recorded"],
+                device_launches_made=res["device_launches_made"],
+                train_bin_max_abs_err=max(r["err"] for r in rows),
+                train_bin_ms=[r["ms"] for r in rows],
+                train_bin_device_ms=[r["device_ms"] for r in rows],
+                train_bin_bound_ms=[r["bound"] for r in rows],
+                train_bin_device_launches_recorded=[r["recorded"] for r in rows])
+            if p == "fp32":
+                entry.update(
+                    training_launches=train["launches"][name],
+                    training_launches_per_step=[r["launches"][name] for r in train["rows"]],
+                    training_device_ms_per_step=train_profile[name]["device_ms"],
+                    training_device_launches_recorded=train_profile[name]["recorded"],
+                    training_device_launches_made=train_profile[name]["made"])
+            elif p == "bf16":
+                entry.update(training_launches=bf16_training_launches[name])
+            entries.append(entry)
+        if name in identity:
+            rows = identity[name]
+            res = _summed(rows)
+            entries.append(dict(
+                name=f"{name}_identity", precision="fp32", **common,
+                launches=identity_launches[name], max_abs_err=res["max_abs_err"],
+                ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
+                bound_by=res["bound_by"], library_ms=None,
+                device_ms=sum(r["device_ms"] for r in rows),
+                per_layer_device_ms=[r["device_ms"] for r in rows],
+                per_layer_share_of_bound=[r["bound"] / r["device_ms"] for r in rows],
+                device_launches_recorded=sum(r["recorded"] for r in rows)))
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
@@ -829,19 +1188,23 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}; card: {card}", flush=True)
 
     t0 = time.perf_counter()
-    specs = [CONFIG.tp_spec_at(layer) for layer in range(CONFIG.n_interactions)]
-    cuda_lib.build([*sck.build_units([CONFIG.symcon_spec()]), *tpk.build_units(specs)])
-    print(f"kernels built in {time.perf_counter() - t0:.1f}s", flush=True)
-    for library, log in cuda_lib.build_logs.items():
-        for kernel, report in _ptxas_report(log).items():
-            print(f"ptxas {library} {kernel}: {report}")
+    units = kernel_units()
+    cuda_lib.build([unit for _, unit in units])
+    print(f"{len(units)} kernel libraries built in {time.perf_counter() - t0:.1f}s", flush=True)
+    for label, unit in units:
+        library = cuda_lib.library_path(*unit).stem
+        for kernel, report in _ptxas_report(cuda_lib.build_logs[library]).items():
+            print(f"ptxas {library} ({label}) {kernel}: {report}")
             stack_or_spill = re.findall(r"(\d+) bytes (?:stack frame|spill)", report)
             if any(int(n) for n in stack_or_spill):
-                raise AssertionError(f"{kernel} uses a stack frame or spills: {report}")
+                raise AssertionError(f"{kernel} ({label}) uses a stack frame or spills: {report}")
+    check_rounding(dev)
 
     kernel_results = check_kernels(dev)
     tr = _trainer(TRAIN_ATOMS, None)  # device None: the CUDA card
-    training_results = check_training_size(dev, first_bin_blocking(tr))
+    blk = first_bin_blocking(tr)
+    training_results = check_training_size(dev, blk)
+    identity_results = check_identity_launch(dev, tr.bin_shape.max_edges)
 
     params = init_mace(CONFIG, torch.Generator().manual_seed(SEED))
     mols = skewed_requests()
@@ -854,39 +1217,21 @@ def main() -> int:
     if missing:
         raise AssertionError(f"the serving run launched no {missing}")
     train = train_steps(tr)
+    variant_launches = serve_at_precisions(params, mols, results)
+    identity_launches = check_paths_and_impls(dev, params, mols, buckets[-1])
+    bf16_training_launches = train_variants(train["history"])
 
     profile_serving(params, mols)
-    time_kernels(kernel_results, training_results)
+    time_kernels(kernel_results, {**training_results, **identity_results})
     train_profile = profile_train_step(tr, [r["ms"] for r in train["rows"]])
     checkpoint_round_trip(tr)
     compare_with_cpu(params, mols, results, buckets)
     compare_training_with_cpu()
 
     print(card)
-    print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=spec["source"], replaces=spec["replaces"],
-             launches=launches[name], max_abs_err=kernel_results[name]["max_abs_err"],
-             ms=kernel_results[name]["ms"], plain_ms=kernel_results[name]["plain_ms"],
-             bound_ms=kernel_results[name]["bound_ms"],
-             bound_by=kernel_results[name]["bound_by"],
-             library_ms=kernel_results[name]["library_ms"],
-             device_ms=kernel_results[name]["device_ms"],
-             per_layer_device_ms=kernel_results[name]["per_layer_device_ms"],
-             per_layer_share_of_bound=kernel_results[name]["per_layer_share_of_bound"],
-             device_launches_recorded=kernel_results[name]["device_launches_recorded"],
-             device_launches_made=kernel_results[name]["device_launches_made"],
-             training_launches=train["launches"][name],
-             training_launches_per_step=[r["launches"][name] for r in train["rows"]],
-             training_device_ms_per_step=train_profile[name]["device_ms"],
-             training_device_launches_recorded=train_profile[name]["recorded"],
-             training_device_launches_made=train_profile[name]["made"],
-             train_bin_max_abs_err=max(r["err"] for r in training_results[name]),
-             train_bin_device_ms=[r["device_ms"] for r in training_results[name]],
-             train_bin_bound_ms=[r["bound"] for r in training_results[name]],
-             train_bin_device_launches_recorded=[r["recorded"]
-                                                 for r in training_results[name]])
-        for name, spec in KERNELS.items()
-    ]}))
+    print(json.dumps({"kernels": kernel_entries(
+        kernel_results, training_results, identity_results, launches, train,
+        train_profile, variant_launches, bf16_training_launches, identity_launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

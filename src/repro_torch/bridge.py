@@ -1,5 +1,6 @@
-"""Parameter bridge between the JAX package's pytrees and the port, and the
-placement of parameters on the port's device.
+"""Parameter bridge between the JAX package's pytrees and the port, the map
+from the JAX package's kernel names to the port's, and the placement of
+parameters on the port's device.
 
 Torch cannot reproduce ``jax.random``, so a test gives both models the same
 weights by converting the JAX parameters (as numpy) into the port's nested
@@ -16,6 +17,17 @@ import numpy as np
 import torch
 
 SEP = "/"
+
+# The JAX package's kernel registry, under the port's names: impl names of
+# every kind (``MaceConfig.impl`` / ``interaction_impl``), the interaction
+# backward (``interaction_bwd_impl`` / ``InteractionSpec.bwd_impl``), the
+# capability field that marks a hand-written kernel, and the platforms (the
+# TPU kernels' counterparts run on the GPU).
+JAX_IMPL_NAMES = {"ref": "ref", "fused": "fused", "pallas": "cuda",
+                  "pallas_bf16": "cuda_bf16", "pallas_fp8": "cuda_fp8"}
+JAX_BWD_IMPL_NAMES = {"pallas": "cuda", "xla": "fused"}
+JAX_CAPABILITY_FIELDS = {"uses_pallas": "uses_kernel"}
+JAX_PLATFORMS = {"cpu": "cpu", "gpu": "gpu", "tpu": "gpu"}
 
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:

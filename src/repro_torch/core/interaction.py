@@ -3,11 +3,13 @@
     A_i = (1 / avg_num_neighbors) * sum_{j in N(i)} TP(Y_ji, h_j, R_ji)
 
 Port of the JAX package's ``core/interaction.py``: the spec, and the two
-plain-torch formulations, :func:`interaction_ref` (dense TP messages, then
+plain-torch formulations, registered as the ``ref`` and ``fused`` impls of
+the ``interaction`` kind: :func:`interaction_ref` (dense TP messages, then
 the receiver sum) and :func:`interaction_fused` (the sum taken in the nnz
 basis; its double VJP is the second-order rule of the interaction backward
-kernel).  Every registered impl shares one signature, bound to an
-:class:`InteractionSpec` by the registry:
+kernel, and its VJP the ``bwd_impl="fused"`` backward).  The ``cuda`` impls
+live in ``kernels/channelwise_tp/ops.py``.  Every registered impl shares
+one signature, bound to an :class:`InteractionSpec` by the registry:
 
     fn(Y, h_node, R, senders, receivers, edge_mask, *, blocking=None) -> A
 
@@ -22,6 +24,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import registry
+from repro_torch.kernels.precision import check_precision
 
 from .channelwise_tp import (
     TPSpec,
@@ -40,13 +43,52 @@ class InteractionSpec:
     tp: TPSpec
     avg_num_neighbors: float
     # atom rows per kernel tile; must equal the data pipeline's
-    # BinShape.block_n (the serving engine validates this)
+    # BinShape.block_n (the serving and training engines validate this)
     block_n: int = 32
+    # backward of the cuda impls (the JAX package's "pallas" / "xla"):
+    # "cuda" runs the gather + TP-transpose backward kernel; "fused" is the
+    # VJP of interaction_fused by autograd, differentiable to any order.
+    # ref and fused impls ignore it.
+    bwd_impl: str = "cuda"
+    # operand precision of the cuda kernels (forward and backward): reduced
+    # precisions round the loaded operands, every sum stays fp32
+    # (kernels/precision.py).  ref and fused impls ignore it (always fp32);
+    # the second-order twins stay fp32 at every setting.
+    precision: str = "fp32"
+
+    def __post_init__(self):
+        if self.bwd_impl not in ("cuda", "fused"):
+            raise ValueError(
+                f"bwd_impl must be 'cuda' or 'fused', got {self.bwd_impl!r}"
+            )
+        check_precision(self.precision)
 
 
 def resolve_interaction(name: str, spec: InteractionSpec):
-    """Resolve an interaction impl by name through ``kernels.registry``."""
-    return registry.resolve("interaction", name, spec)
+    """Resolve an interaction impl by name through ``kernels.registry``.
+
+    A name registered only under the ``channelwise_tp`` kind (a TP-only
+    kernel, the registry's extension point) falls back to that impl wrapped
+    in the oracle aggregation (gather -> mask -> receiver sum -> /avg), so
+    ``MaceConfig(interaction_impl="<registered>")`` keeps working."""
+    # check registration first, so that a KeyError raised inside a
+    # registered builder propagates instead of selecting the fallback
+    if name in registry.available("interaction"):
+        return registry.resolve("interaction", name, spec)
+    if name not in registry.available("channelwise_tp"):
+        raise KeyError(
+            f"no interaction or channelwise_tp impl {name!r}; "
+            f"interaction: {registry.available('interaction')}, "
+            f"channelwise_tp: {registry.available('channelwise_tp')}"
+        )
+    tp_fn = registry.resolve("channelwise_tp", name, spec.tp)
+
+    def tp_wrapped(Y, h_node, R, senders, receivers, edge_mask, *, blocking=None):
+        del blocking
+        msgs = tp_fn(Y, h_node[senders.long()], R)
+        return aggregate_edge_messages(msgs, receivers, edge_mask, h_node.shape[0], spec)
+
+    return tp_wrapped
 
 
 def aggregate_edge_messages(

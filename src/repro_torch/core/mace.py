@@ -21,8 +21,16 @@ runs through the kernel ops' plain twins (``kernels/*/ops.py``).
 Batch layout (static shapes; padding masked) is the JAX package's:
 species [N], positions [N, 3], node_mask [N], senders/receivers/edge_mask
 [E], graph_id [N], plus the ``blk_*`` edge blocking (``data.blocking``)
-that the ``cuda`` interaction impl reads.  Parameters are a nested dict of
-tensors with the JAX package's keys (``bridge.py`` converts both ways).
+that the ``cuda`` interaction impls read (without it they take the
+unblocked path).  Parameters are a nested dict of tensors with the JAX
+package's keys (``bridge.py`` converts both ways).
+
+Kernel selection is the JAX package's, under the port's names
+(``bridge.JAX_IMPL_NAMES``): ``MaceConfig.impl`` picks the symmetric
+contraction, ``interaction_impl`` the interaction op (``ref``, ``fused``,
+``cuda`` or a registered name), ``interaction_bwd_impl`` the interaction
+backward of the cuda impls (``cuda`` or ``fused``), and ``precision``
+rewrites ``cuda`` to its ``cuda_bf16`` / ``cuda_fp8`` variant.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import torch
 
 from repro_torch.bridge import flatten
 from repro_torch.data.blocking import blocking_from_batch
+from repro_torch.kernels.precision import check_precision
 from repro_torch.kernels.registry import resolve
 
 from .channelwise_tp import TPSpec
@@ -61,15 +70,29 @@ class MaceConfig:
     readout_mlp: int = 16
     avg_num_neighbors: float = 12.0
     # symmetric-contraction impl: a name in repro_torch.kernels.registry
+    # ("ref" | "fused" | "cuda" | registered)
     impl: str = "cuda"
-    # interaction (TP + scatter) impl: a name in repro_torch.kernels.registry
+    # interaction (TP + scatter) impl: a name of the registry's interaction
+    # kind, or of its channelwise_tp kind (wrapped in the receiver sum).
+    # "cuda" reads the data pipeline's blk_* arrays when the batch has them
+    # and takes the unblocked path when it has not.
     interaction_impl: str = "cuda"
+    # backward of the cuda interaction impls: "cuda" = the gather +
+    # TP-transpose kernel, "fused" = the VJP of interaction_fused (the JAX
+    # package's "pallas" / "xla").  Ignored by ref and fused.
+    interaction_bwd_impl: str = "cuda"
     # atom rows per kernel tile; must match BinShape.block_n
     interaction_block_n: int = 32
-    # the kernels compute in fp32 (the JAX package's precision="fp32"); the
-    # bf16 and fp8 variants are not ported
+    # operand precision of the kernels ("fp32" | "bf16" | "fp8"): a reduced
+    # precision steers "cuda" to its "cuda_<precision>" variant (operands
+    # rounded as loaded, fp32 sums; kernels/precision.py) and rides the
+    # InteractionSpec into the interaction kernels.  ref and fused have no
+    # reduced-precision variant: asking for one raises when the name is
+    # resolved rather than silently running fp32.
+    precision: str = "fp32"
 
     def __post_init__(self):
+        check_precision(self.precision)
         for field in ("impl", "interaction_impl"):
             if getattr(self, field) == "auto":
                 raise NotImplementedError(
@@ -100,10 +123,32 @@ class MaceConfig:
     def symcon_spec(self) -> SymConSpec:
         return SymConSpec(self.a_spec, self.hidden_spec, self.correlation)
 
+    def _with_precision(self, name: str) -> str:
+        """Map an impl name to its ``self.precision`` variant: fp32 leaves
+        it alone; a reduced precision rewrites ``"cuda"`` to
+        ``"cuda_<precision>"``, accepts a name that already carries the
+        suffix, and refuses any other impl, never running fp32 silently."""
+        if self.precision == "fp32" or name.endswith("_" + self.precision):
+            return name
+        if name == "cuda":
+            return f"cuda_{self.precision}"
+        raise ValueError(
+            f"impl {name!r} has no {self.precision!r} variant; reduced "
+            f"precision requires the cuda kernels (got precision={self.precision!r})"
+        )
+
+    @property
+    def symcon_impl_name(self) -> str:
+        return self._with_precision(self.impl)
+
+    @property
+    def interaction_impl_name(self) -> str:
+        return self._with_precision(self.interaction_impl)
+
     def interaction_spec_at(self, layer: int) -> InteractionSpec:
         return InteractionSpec(
             self.tp_spec_at(layer), self.avg_num_neighbors,
-            self.interaction_block_n,
+            self.interaction_block_n, self.interaction_bwd_impl, self.precision,
         )
 
 
@@ -197,14 +242,14 @@ def mace_energy(
     h = h * nmask_n[:, None, None]
 
     site_energy = positions.new_zeros((N,))
-    sc_fn = resolve("symcon", cfg.impl, cfg.symcon_spec())
+    sc_fn = resolve("symcon", cfg.symcon_impl_name, cfg.symcon_spec())
 
     for t in range(cfg.n_interactions):
         layer = params[f"layer_{t}"]
         h_spec = cfg.h_spec_at(t)
         tp_spec = cfg.tp_spec_at(t)
         int_fn = resolve_interaction(
-            cfg.interaction_impl, cfg.interaction_spec_at(t)
+            cfg.interaction_impl_name, cfg.interaction_spec_at(t)
         )
 
         h_up = _apply_linear_per_l(layer["lin_up"], h, h_spec)

@@ -5,11 +5,12 @@ A_{i,k,lm} to correlation order nu, producing higher-body-order features
                  sum_{m1..m_nu} U^{(L,nu)}[m1..m_nu, M, eta] prod_x A_{i,k,m_x}
 
 with the generalized Clebsch-Gordan U tensors of :func:`repro_torch.core.cg.
-u_tensor`.  Port of the spec, table and init half of the JAX package's
-``core/symmetric_contraction.py``, and of its ``symcon_ref``, the dense-U
-einsum baseline; the kernels live in ``repro_torch.kernels.
-symmetric_contraction`` and the ``symcon_fused`` twin waits for the training
-slice.
+u_tensor`.  Port of the JAX package's ``core/symmetric_contraction.py``:
+the spec, the sparse tables and the init, and the two plain-torch
+formulations, ``symcon_ref`` (the dense-U einsum baseline) and
+``symcon_fused`` (the sparse tables, one gather, product and one-hot
+scatter matmul per (L, nu)); the kernels live in ``repro_torch.kernels.
+symmetric_contraction``.
 """
 from __future__ import annotations
 
@@ -114,3 +115,33 @@ def build_symcon_tables(spec: SymConSpec) -> SymConTables:
         idx, M, eta, val = u_tensor_nonzeros(tuple(spec.in_spec.ls), L, nu)
         entries.append((L, nu, idx, M, eta, val))
     return SymConTables(tuple(entries))
+
+
+def symcon_fused(
+    A: torch.Tensor,            # [N, k, dim_in]
+    species: torch.Tensor,      # [N] int
+    weights: Dict[str, torch.Tensor],
+    spec: SymConSpec,
+    tables: SymConTables | None = None,
+) -> torch.Tensor:
+    """Fused sparse-table implementation (the JAX ``symcon_fused``): per
+    (L, nu) the nonzero products of A, times the gathered weights and the U
+    values, summed onto the output's M components by a one-hot matmul.
+    Returns B: [N, k, dim_out]."""
+    t = tables or build_symcon_tables(spec)
+    N, k, _ = A.shape
+    dt, dev = A.dtype, A.device
+    out = A.new_zeros((N, k, spec.out_spec.dim))
+    for (L, nu, idx, M, eta, val) in t.entries:
+        W = weights[f"w_L{L}_nu{nu}"][species]                  # [N, k, n_paths]
+        cols = torch.as_tensor(idx, dtype=torch.long, device=dev)
+        prod = A[:, :, cols[:, 0]]
+        for x in range(1, nu):
+            prod = prod * A[:, :, cols[:, x]]                    # [N, k, nnz]
+        wg = W[:, :, torch.as_tensor(eta, dtype=torch.long, device=dev)]
+        contrib = prod * wg * torch.as_tensor(val, dtype=dt, device=dev)
+        scatter = torch.zeros((len(M), 2 * L + 1), dtype=dt, device=dev)
+        scatter[torch.arange(len(M), device=dev),
+                torch.as_tensor(M, dtype=torch.long, device=dev)] = 1.0
+        out[:, :, spec.out_spec.slice_for(L)] += contrib @ scatter
+    return out

@@ -15,8 +15,9 @@
 //   out   [n_tiles * block_n, d_out, k]   per-tile receiver rows
 //   G     (backward) the cotangent of out;  dY, dh, dR shapes of Y, h, R
 //
-// Built once per tensor-product spec with the header KERNEL_HEADER that
-// repro_torch/kernels/channelwise_tp/kernel.py::spec_header generates: the
+// Built once per (tensor-product spec, precision) with the header
+// KERNEL_HEADER that repro_torch/kernels/channelwise_tp/kernel.py::
+// spec_header generates: the operand precision PRECISION (round_op.cuh), the
 // dimensions D_SH, D_H, N_P, D_OUT and the CG entries unrolled, grouped by
 // one index, into straight-line scalar sums (tp_messages: msg[m3] by m3;
 // tp_transpose: dh by m2, dR by path, per-channel dY by m1).  Every
@@ -27,6 +28,19 @@
 // entry, one of Y and one or two of the operands for three flops; measured
 // on the card, those reads and not the device memory set both kernels' time
 // (PERF.md).
+//
+// Precision (the JAX package's pallas_bf16 / pallas_fp8 variants): a bf16 or
+// fp8 build rounds every loaded Y, h and R element (and, in the backward,
+// every loaded cotangent element) in registers (round_op.cuh; the forward
+// after the next slot's loads are issued), and the forward rounds each
+// slot's formed messages before they are added to their row's sums, as
+// _tp_scatter_kernel rounds the messages before its scatter matmul; every
+// sum stays fp32.  At a reduced precision
+// the header forms the messages with __fmul_rn / __fadd_rn, in the plain
+// version's order, so no multiply-add is fused: a message is then the plain
+// version's bit for bit before it is rounded, and the kernel and its plain
+// version round it to the same value.  The arrays stay fp32, so every build
+// moves the same bytes.
 //
 // What bounds both on this card: bytes.  Each valid slot reads
 // (d_h + n_paths) * k floats of h and R (14 * 128 * 4 = 7 KB at the paper's
@@ -75,7 +89,8 @@
 // phase 1 prints and checks it: 0 bytes of stack frame, 0 bytes of spill
 // stores and loads for both kernels; registers per thread, layer 0 / layer 1:
 // tp_scatter_kernel 96 / 128 (the cap of __launch_bounds__(256, 2)),
-// tp_gather_bwd_kernel 92 / 128 (the cap of __launch_bounds__(128, 4)).
+// tp_gather_bwd_kernel 92 / 128 (the cap of __launch_bounds__(128, 4)); the
+// bf16 and fp8 builds the same forward, and a backward of 88-90 / 112-114.
 // Wider specs stay correct but may spill: at d_sh = d_out = 25 (l <= 4, the
 // gpu test's widest case, whose forward needs more than 48 KB of dynamic
 // shared memory) the forward has none, the backward 248 bytes of stack and
@@ -86,6 +101,7 @@
 #error "build with -DKERNEL_HEADER=<header from kernel.py::spec_header>"
 #endif
 #include KERNEL_HEADER
+#include "round_op.cuh"
 
 static_assert(D_SH <= 32 && D_H <= 32 && D_OUT <= 32,
               "a slot's Y is spread from one lane per component");
@@ -200,14 +216,18 @@ __global__ void __launch_bounds__(FWD_WARPS * 32, 2) tp_scatter_kernel(
     int cur = s_row[s_sorted[lo]];
     for (int pos = lo; pos < hi; ++pos) {
       float y[D_SH], hc[D_H], rc[N_P];
-      spread_y(yl, y);
+      spread_y(round_op(yl), y);
 #pragma unroll
       for (int m = 0; m < D_H; ++m) hc[m] = hv[m];
 #pragma unroll
       for (int p = 0; p < N_P; ++p) rc[p] = rv[p];
       if (pos + 1 < hi) load_slot(Y, h, R, s0 + s_sorted[pos + 1], k, c, ok, yl, hv, rv);
+      // rounded here, not as loaded: the next slot's loads stay in flight
+      round_all(hc);
+      round_all(rc);
       float msg[D_OUT];
       tp_messages(y, hc, rc, msg);
+      round_all(msg);
 #pragma unroll
       for (int m = 0; m < D_OUT; ++m) sum[m] += msg[m];
       const int next = pos + 1 < hi ? s_row[s_sorted[pos + 1]] : -1;
@@ -287,7 +307,10 @@ __global__ void __launch_bounds__(BWD_THREADS, 4) tp_gather_bwd_kernel(
       for (int m = 0; m < D_OUT; ++m)
         g[m] = ok ? __ldg(G + (row * D_OUT + m) * k + c) : 0.f;
       load_slot(Y, h, R, s, k, c, ok, yl, hv, rv);
-      spread_y(yl, y);
+      round_all(g);
+      round_all(hv);
+      round_all(rv);
+      spread_y(round_op(yl), y);
       float dhv[D_H], drv[N_P], dyv[D_SH];
       tp_transpose(y, g, hv, rv, dhv, drv, dyv);
       if (ok) {

@@ -11,9 +11,10 @@
 //   B  [N, d_out,   k]   output;  G = dL/dB has B's shape
 //   dA, dW               shapes of A, W
 //
-// Built once per symmetric-contraction spec with the header KERNEL_HEADER
-// that repro_torch/kernels/symmetric_contraction/kernel.py::spec_header
-// generates: the dimensions D_IN, P_TOTAL, D_OUT and the CG groups (one per
+// Built once per (symmetric-contraction spec, precision) with the header
+// KERNEL_HEADER that repro_torch/kernels/symmetric_contraction/kernel.py::
+// spec_header generates: the operand precision PRECISION (round_op.cuh), the
+// dimensions D_IN, P_TOTAL, D_OUT and the CG groups (one per
 // (term, eta, M), in table order) unrolled into straight-line scalar
 // statements: symcon_contract (per group s = sum of val * prod A[m_x], then
 // b[M] = / += w[eta] * s) and symcon_transpose (per group dw[eta] = / +=
@@ -21,6 +22,12 @@
 // hold the row).  Every operand and output index is a compile-time
 // constant, so a thread's A, W, G, B, dA and dW columns are registers, as
 // the TPU kernels unroll the same groups at trace time.
+//
+// Precision (the JAX package's pallas_bf16 / pallas_fp8 variants): a bf16 or
+// fp8 build rounds every loaded A, W and G element (round_all in
+// load_column, in the registers they were loaded into) and computes in fp32
+// as the fp32 build does.  The arrays stay fp32, so every build moves the
+// same bytes.
 //
 // What bounds both on this card: bytes.  Per (atom, channel) the forward
 // reads d_in + p_total floats and writes d_out (16 + 9 in, 4 out at the
@@ -54,6 +61,7 @@
 #error "build with -DKERNEL_HEADER=<header from kernel.py::spec_header>"
 #endif
 #include KERNEL_HEADER
+#include "round_op.cuh"
 
 namespace {
 
@@ -67,6 +75,7 @@ __device__ __forceinline__ void load_column(const float* __restrict__ col,
                                             long k, float (&v)[D]) {
 #pragma unroll
   for (int m = 0; m < D; ++m) v[m] = __ldg(col + m * k);
+  round_all(v);
 }
 
 template <int D>
@@ -107,6 +116,14 @@ __global__ void __launch_bounds__(THREADS) symcon_bwd_kernel(
   store_column(dW + n * P_TOTAL * k + c, k, dw);
 }
 
+// round_op on n values: the rounding of this build, checked against the
+// plain round_to on the card (chip_smoke.py)
+__global__ void __launch_bounds__(THREADS) round_values_kernel(
+    const float* __restrict__ x, float* __restrict__ y, int n) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  if (i < n) y[i] = round_op(x[i]);
+}
+
 unsigned blocks_for(int N, int k) {
   const long total = static_cast<long>(N) * k;
   return static_cast<unsigned>((total + THREADS - 1) / THREADS);
@@ -125,5 +142,11 @@ extern "C" int symcon_bwd(const float* A, const float* W, const float* G,
                           cudaStream_t stream) {
   symcon_bwd_kernel<<<blocks_for(N, k), THREADS, 0, stream>>>(A, W, G, dA, dW,
                                                               N, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int round_values(const float* x, float* y, int n,
+                            cudaStream_t stream) {
+  round_values_kernel<<<blocks_for(n, 1), THREADS, 0, stream>>>(x, y, n);
   return static_cast<int>(cudaGetLastError());
 }

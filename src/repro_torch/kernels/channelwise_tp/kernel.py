@@ -9,16 +9,22 @@ MXU matmul per tile; on Hopper the forward gives each thread one (receiver
 row, channel) of a tile and gathers that row's slots, and the backward
 gives each thread one (slot, channel) (see the source's note).  Like the
 TPU kernels, which unroll the CG entries at trace time, the source is built
-once per spec with a generated header (:func:`spec_header`) that unrolls
-the entries, grouped by one index, into straight-line scalar sums over
-operands held in registers.  Beside each
-kernel is its plain PyTorch version, an explicit loop over the same CG
-entries:
+once per (spec, precision) with a generated header (:func:`spec_header`)
+that unrolls the entries, grouped by one index, into straight-line scalar
+sums over operands held in registers.  Beside each kernel is its plain
+PyTorch version, an explicit loop over the same CG entries:
 
 * :func:`tp_scatter_plain` — messages per slot, then ``index_add_`` of the
   valid slots into their tile's rows;
 * :func:`tp_gather_bwd_plain` — gather of each valid slot's receiver
   cotangent row, then the TP transpose entry by entry.
+
+Precision (``"fp32"``, ``"bf16"``, ``"fp8"``; ``kernels/precision.py``), as
+the TPU kernels' ``precision`` argument: Y, h, R and the cotangent G are
+rounded as they are loaded, and the forward rounds each slot's message
+before the scatter; every sum is fp32.  One difference at fp8 overflow: a
+message or cotangent that rounds to NaN reaches its own row or slot here,
+where the reference's one-hot matmuls (``0 * NaN``) spread it over the tile.
 
 The wrappers :func:`tp_scatter` and :func:`tp_gather_bwd` launch the kernel
 on CUDA tensors and take the plain version only for CPU tensors.
@@ -36,7 +42,14 @@ from typing import List, Tuple
 import torch
 
 from repro_torch.core.channelwise_tp import TPSpec, build_tp_tables
-from repro_torch.kernels.cuda_lib import INT, PTR, CudaKernel, f32_literal
+from repro_torch.kernels.cuda_lib import (
+    INT,
+    PTR,
+    CudaKernel,
+    f32_literal,
+    precision_define,
+)
+from repro_torch.kernels.precision import round_to
 
 # Limits of csrc/channelwise_tp.cu: a slot's Y is spread from one lane per
 # component (d_sh <= 32, and d_h, d_out alike; the paper's widths, 16, fit
@@ -69,9 +82,10 @@ def spec_dims(spec: TPSpec) -> Tuple[int, int, int, int]:
     return spec.y_spec.dim, spec.h_spec.dim, spec.n_paths, spec.out_spec.dim
 
 
-def _grouped_sums(spec: TPSpec, key: str, target: str, term) -> List[str]:
+def _grouped_sums(spec: TPSpec, key: str, target: str, term, add=None) -> List[str]:
     """``target[g] = / += term`` over the CG entries whose ``key`` is g, in
-    table order, for every g; a group without entries is set to zero."""
+    table order, for every g; a group without entries is set to zero.  With
+    ``add``, a later term is added as ``target[g] = add(target[g], term)``."""
     d_sh, d_h, n_paths, d_out = spec_dims(spec)
     field, n_groups = {"m1": (0, d_sh), "m2": (1, d_h), "m3": (2, d_out),
                        "path": (3, n_paths)}[key]
@@ -82,22 +96,39 @@ def _grouped_sums(spec: TPSpec, key: str, target: str, term) -> List[str]:
         if not group:
             lines.append(f"  {target}[{g}] = 0.f;")
         for j, (m1, m2, m3, p, val) in enumerate(group):
-            op = "=" if j == 0 else "+="
-            lines.append(f"  {target}[{g}] {op} {term(m1, m2, m3, p, f32_literal(val))};")
+            t = term(m1, m2, m3, p, f32_literal(val))
+            if j == 0:
+                lines.append(f"  {target}[{g}] = {t};")
+            elif add is None:
+                lines.append(f"  {target}[{g}] += {t};")
+            else:
+                lines.append(f"  {target}[{g}] = {add(f'{target}[{g}]', t)};")
     return lines
 
 
 @functools.lru_cache(maxsize=None)
-def spec_header(spec: TPSpec) -> str:
-    """The header ``csrc/channelwise_tp.cu`` is built with for ``spec``: its
+def spec_header(spec: TPSpec, precision: str = "fp32") -> str:
+    """The header ``csrc/channelwise_tp.cu`` is built with for ``spec`` at
+    ``precision``: the operand rounding (``PRECISION``), the spec's
     dimensions and the CG entries unrolled, grouped by one index in table
     order, into straight-line scalar sums over operands in registers: the
     forward's messages by m3 (``tp_messages``); the backward's dh by m2, dR
     by path and per-channel dY by m1 (``tp_transpose``).  Each statement
-    reads ``target[g] = / += term``."""
+    reads ``target[g] = / += term``.  At a reduced precision the messages
+    are formed with ``__fmul_rn`` / ``__fadd_rn``, which the compiler never
+    fuses into a multiply-add, in :func:`tp_scatter_plain`'s order: each
+    message is then the plain version's bit for bit, so both round it to
+    the same value."""
     d_sh, d_h, n_paths, d_out = spec_dims(spec)
-    msg = _grouped_sums(spec, "m3", "msg",
-                        lambda m1, m2, m3, p, v: f"(y[{m1}] * {v}) * h[{m2}] * r[{p}]")
+    if precision == "fp32":
+        msg = _grouped_sums(spec, "m3", "msg", lambda m1, m2, m3, p, v: (
+            f"(y[{m1}] * {v}) * h[{m2}] * r[{p}]"))
+    else:  # every product and sum rounded on its own, never fused
+        msg = _grouped_sums(
+            spec, "m3", "msg",
+            lambda m1, m2, m3, p, v: (
+                f"__fmul_rn(__fmul_rn(__fmul_rn(y[{m1}], {v}), h[{m2}]), r[{p}])"),
+            add=lambda acc, t: f"__fadd_rn({acc}, {t})")
     dh = _grouped_sums(spec, "m2", "dh",
                        lambda m1, m2, m3, p, v: f"(g[{m3}] * r[{p}]) * (y[{m1}] * {v})")
     dr = _grouped_sums(spec, "path", "dr",
@@ -108,6 +139,7 @@ def spec_header(spec: TPSpec) -> str:
         "// Generated by repro_torch/kernels/channelwise_tp/kernel.py::spec_header",
         f"// for {spec!r}.",
         "#pragma once",
+        precision_define(precision),
         f"constexpr int D_SH = {d_sh}, D_H = {d_h}, N_P = {n_paths}, D_OUT = {d_out};",
         "__device__ __forceinline__ void tp_messages(",
         "    const float (&y)[D_SH], const float (&h)[D_H], const float (&r)[N_P],",
@@ -126,10 +158,11 @@ def spec_header(spec: TPSpec) -> str:
     ])
 
 
-def build_units(specs):
-    """The (source, header) build units of these specs' kernels, for
-    :func:`repro_torch.kernels.cuda_lib.build`."""
-    return [("channelwise_tp.cu", spec_header(spec)) for spec in specs]
+def build_units(specs, precisions=("fp32",)):
+    """The (source, header) build units of these specs' kernels at these
+    precisions, for :func:`repro_torch.kernels.cuda_lib.build`."""
+    return [("channelwise_tp.cu", spec_header(spec, p))
+            for spec in specs for p in precisions]
 
 
 # ---------------------------------------------------------------------------
@@ -144,29 +177,36 @@ def _slot_rows(local: torch.Tensor, epb: int, block_n: int) -> torch.Tensor:
 
 
 def tp_scatter_plain(
-    Y_b, h_b, R_b, local, valid, spec: TPSpec, *, n_tiles: int, block_n: int
+    Y_b, h_b, R_b, local, valid, spec: TPSpec, *, n_tiles: int, block_n: int,
+    precision: str = "fp32",
 ) -> torch.Tensor:
-    """A_t [n_tiles * block_n, d_out, k]: per-slot messages summed into their
+    """A_t [n_tiles * block_n, d_out, k]: per-slot messages, from Y, h and R
+    rounded to ``precision`` and rounded themselves, summed into their
     tile's receiver rows; masked slots add nothing."""
     E_p, _, k = h_b.shape
+    Y_b, h_b, R_b = (round_to(t, precision) for t in (Y_b, h_b, R_b))
     d_out = spec.out_spec.dim
     msg = [None] * d_out
     for (m1, m2, m3, p, val) in tp_entries(spec):
         contrib = (Y_b[:, m1, None] * val) * h_b[:, m2, :] * R_b[:, p, :]
         msg[m3] = contrib if msg[m3] is None else msg[m3] + contrib
     zeros = h_b.new_zeros((E_p, k))
-    msgs = torch.stack([m if m is not None else zeros for m in msg], dim=1)
+    msgs = round_to(torch.stack([m if m is not None else zeros for m in msg], dim=1),
+                    precision)
     rows = _slot_rows(local, E_p // n_tiles, block_n)
     out = h_b.new_zeros((n_tiles * block_n, d_out, k))
     return out.index_add_(0, rows[valid], msgs[valid])
 
 
 def tp_gather_bwd_plain(
-    G_t, Y_b, h_b, R_b, local, valid, spec: TPSpec, *, n_tiles: int, block_n: int
+    G_t, Y_b, h_b, R_b, local, valid, spec: TPSpec, *, n_tiles: int, block_n: int,
+    precision: str = "fp32",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dY_b, dh_b, dR_b): each valid slot gathers its receiver's cotangent
-    row, then the TP transpose; masked slots get exact zeros."""
+    row, then the TP transpose, with G, Y, h and R rounded to
+    ``precision``; masked slots get exact zeros."""
     E_p, d_h, k = h_b.shape
+    G_t, Y_b, h_b, R_b = (round_to(t, precision) for t in (G_t, Y_b, h_b, R_b))
     rows = _slot_rows(local, E_p // n_tiles, block_n)
     ge = torch.where(valid[:, None, None], G_t[rows], G_t.new_zeros(()))
     dy = [None] * Y_b.shape[1]
@@ -235,14 +275,16 @@ def _check_operands(Y_b, h_b, R_b, local, valid, spec, n_tiles):
 
 
 def tp_scatter(
-    Y_b, h_b, R_b, local, valid, spec: TPSpec, *, n_tiles: int, block_n: int
+    Y_b, h_b, R_b, local, valid, spec: TPSpec, *, n_tiles: int, block_n: int,
+    precision: str = "fp32",
 ) -> torch.Tensor:
     """A_t [n_tiles * block_n, d_out, k]: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors."""
     E_p, d_h, k = _check_operands(Y_b, h_b, R_b, local, valid, spec, n_tiles)
     if not h_b.is_cuda:
         return tp_scatter_plain(
-            Y_b, h_b, R_b, local, valid, spec, n_tiles=n_tiles, block_n=block_n
+            Y_b, h_b, R_b, local, valid, spec, n_tiles=n_tiles, block_n=block_n,
+            precision=precision,
         )
     d_out = spec_dims(spec)[3]
     out = torch.empty((n_tiles * block_n, d_out, k), dtype=h_b.dtype, device=h_b.device)
@@ -251,13 +293,14 @@ def tp_scatter(
     TP_SCATTER_FWD(
         Y_b.data_ptr(), h_b.data_ptr(), R_b.data_ptr(), local.data_ptr(),
         valid.data_ptr(), out.data_ptr(), n_tiles, E_p // n_tiles, block_n,
-        *spec_dims(spec), k, header=spec_header(spec),
+        *spec_dims(spec), k, header=spec_header(spec, precision),
     )
     return out
 
 
 def tp_gather_bwd(
-    G_t, Y_b, h_b, R_b, local, valid, spec: TPSpec, *, n_tiles: int, block_n: int
+    G_t, Y_b, h_b, R_b, local, valid, spec: TPSpec, *, n_tiles: int, block_n: int,
+    precision: str = "fp32",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dY_b, dh_b, dR_b): the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
@@ -266,7 +309,8 @@ def tp_gather_bwd(
     _check("G_t", G_t, (n_tiles * block_n, d_out, k), torch.float32, h_b.device)
     if not h_b.is_cuda:
         return tp_gather_bwd_plain(
-            G_t, Y_b, h_b, R_b, local, valid, spec, n_tiles=n_tiles, block_n=block_n
+            G_t, Y_b, h_b, R_b, local, valid, spec, n_tiles=n_tiles, block_n=block_n,
+            precision=precision,
         )
     dY = torch.empty_like(Y_b)
     dh = torch.empty_like(h_b)
@@ -277,6 +321,6 @@ def tp_gather_bwd(
         G_t.data_ptr(), Y_b.data_ptr(), h_b.data_ptr(), R_b.data_ptr(),
         local.data_ptr(), valid.data_ptr(), dY.data_ptr(), dh.data_ptr(),
         dR.data_ptr(), n_tiles, E_p // n_tiles, block_n, *spec_dims(spec), k,
-        header=spec_header(spec),
+        header=spec_header(spec, precision),
     )
     return dY, dh, dR

@@ -4,11 +4,12 @@ Each source under ``repro_torch/csrc`` is compiled by ``nvcc`` into a shared
 library with a plain C interface and loaded through ``ctypes``: no PyTorch
 headers, so a build takes seconds.  Each source is built with a generated
 header (included as ``KERNEL_HEADER``) that fixes compile-time constants,
-such as the CG entries of one spec; each (source, header)
-pair is its own library.  Libraries are built at first use into ``build/kernels/`` at the
-repository root, named by a hash of the source, the header and the flags,
-so an edited source or a new header is rebuilt and an unchanged one is
-reused.  A build failure raises with the compiler's output.
+such as the CG entries of one spec and the operand precision
+(:func:`precision_define`); each (source, header) pair is its own library.
+Libraries are built at first use into ``build/kernels/`` at the repository
+root, named by a hash of the source, the shared headers (``csrc/*.cuh``),
+the generated header and the flags, so an edited source or a new header is
+rebuilt and an unchanged one is reused.  A build failure raises with the compiler's output.
 
 Every C entry point takes device pointers, integer sizes and the CUDA
 stream last, launches on that stream, allocates nothing, and returns
@@ -28,6 +29,8 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.precision import PRECISIONS, check_precision
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -59,9 +62,11 @@ def _nvcc() -> str:
 
 
 def library_path(source: str, header: str) -> Path:
-    """Where a unit's library lives, keyed by source, header and flags."""
+    """Where a unit's library lives, keyed by source, shared headers,
+    generated header and flags."""
+    shared = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        (CSRC / source).read_bytes() + header.encode()
+        (CSRC / source).read_bytes() + shared + header.encode()
         + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
@@ -115,16 +120,24 @@ def load(source: str, header: str) -> ctypes.CDLL:
 
 class CudaKernel:
     """One C entry point ``symbol(args..., stream) -> cudaError_t`` of
-    ``source``, with a count of the launches made through it (over every
-    header the source is built with)."""
+    ``source``, with a count of the launches made through it: ``launches``
+    over every header the source is built with, ``launches_by_header`` per
+    header (so per spec and precision)."""
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.launches_by_header: Dict[str, int] = {}
         self._fns: Dict[str, object] = {}
         self._count_lock = threading.Lock()
+
+    def reset(self) -> None:
+        """Set both launch counts to zero."""
+        with self._count_lock:
+            self.launches = 0
+            self.launches_by_header = {}
 
     def _bind(self, header: str):
         fn = self._fns.get(header)
@@ -145,10 +158,18 @@ class CudaKernel:
             )
         with self._count_lock:
             self.launches += 1
+            self.launches_by_header[header] = self.launches_by_header.get(header, 0) + 1
 
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+
+
+def precision_define(precision: str) -> str:
+    """The line of a generated header that selects ``round_op``'s operand
+    rounding (``csrc/round_op.cuh``) for ``precision``."""
+    code = PRECISIONS.index(check_precision(precision))
+    return f"#define PRECISION {code}  // {precision}"
 
 
 def f32_literal(v: float) -> str:

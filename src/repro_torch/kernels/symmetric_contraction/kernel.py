@@ -4,15 +4,20 @@ The CUDA kernels are ``csrc/symmetric_contraction.cu`` (``symcon_fwd``,
 ``symcon_bwd``); they replace the Pallas TPU kernels ``_symcon_kernel`` and
 ``_symcon_bwd_kernel`` of the JAX package's
 ``kernels/symmetric_contraction/kernel.py``.  Like the TPU kernels, which
-unroll the CG groups at trace time, the source is built once per spec with
-a generated header (:func:`spec_header`) that unrolls the groups of
-:func:`_group_entries` into straight-line scalar sums over one (atom,
-channel)'s operands in registers.  Beside each kernel is its plain PyTorch
-version over the same CG groups:
+unroll the CG groups at trace time, the source is built once per (spec,
+precision) with a generated header (:func:`spec_header`) that unrolls the
+groups of :func:`_group_entries` into straight-line scalar sums over one
+(atom, channel)'s operands in registers.  Beside each kernel is its plain
+PyTorch version over the same CG groups:
 
 * :func:`symcon_plain` — port of the JAX ``symcon_xla_raw``;
 * :func:`symcon_bwd_plain` — an explicit loop over the groups, the product
   rule of ``_symcon_bwd_kernel``.
+
+Precision (``"fp32"``, ``"bf16"``, ``"fp8"``; ``kernels/precision.py``):
+the bf16 and fp8 builds round every loaded operand (A and W; G in the
+backward) and compute in fp32, as the TPU kernels' ``precision`` argument
+does; the plain versions round the same operands with ``round_to``.
 
 The wrappers :func:`symcon_fwd` and :func:`symcon_bwd` launch the kernel on
 a CUDA tensor and take the plain version only for a CPU tensor.
@@ -32,7 +37,14 @@ from repro_torch.core.symmetric_contraction import (
     SymConTables,
     build_symcon_tables,
 )
-from repro_torch.kernels.cuda_lib import INT, PTR, CudaKernel, f32_literal
+from repro_torch.kernels.cuda_lib import (
+    INT,
+    PTR,
+    CudaKernel,
+    f32_literal,
+    precision_define,
+)
+from repro_torch.kernels.precision import round_to
 
 SYMCON_FWD = CudaKernel(
     "symmetric_contraction.cu", "symcon_fwd", [PTR] * 3 + [INT] * 2
@@ -40,6 +52,8 @@ SYMCON_FWD = CudaKernel(
 SYMCON_BWD = CudaKernel(
     "symmetric_contraction.cu", "symcon_bwd", [PTR] * 5 + [INT] * 2
 )
+# round_op of a build on n values (a check of the rounding, off the model's path)
+ROUND_VALUES = CudaKernel("symmetric_contraction.cu", "round_values", [PTR] * 2 + [INT])
 
 
 def _group_entries(
@@ -73,11 +87,12 @@ def p_total_of(spec: SymConSpec) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def spec_header(spec: SymConSpec) -> str:
+def spec_header(spec: SymConSpec, precision: str = "fp32") -> str:
     """The header ``csrc/symmetric_contraction.cu`` is built with for
-    ``spec``: its dimensions and the groups of :func:`_group_entries`, in
-    table order, unrolled into straight-line scalar statements over one
-    (atom, channel)'s operands in registers.
+    ``spec`` at ``precision``: the operand rounding (``PRECISION``), the
+    spec's dimensions and the groups of :func:`_group_entries`, in table
+    order, unrolled into straight-line scalar statements over one (atom,
+    channel)'s operands in registers.
 
     ``symcon_contract(a, w, b)``, the forward: per group
     ``s = / += Π a[m_x] * val`` over its entries, then
@@ -130,6 +145,7 @@ def spec_header(spec: SymConSpec) -> str:
         "// Generated by repro_torch/kernels/symmetric_contraction/kernel.py::spec_header",
         f"// for {spec!r}.",
         "#pragma once",
+        precision_define(precision),
         f"constexpr int D_IN = {d_in}, P_TOTAL = {p_total}, D_OUT = {d_out};",
         "__device__ __forceinline__ void symcon_contract(",
         "    const float (&a)[D_IN], const float (&w)[P_TOTAL], float (&b)[D_OUT]) {",
@@ -146,10 +162,11 @@ def spec_header(spec: SymConSpec) -> str:
     ])
 
 
-def build_units(specs):
-    """The (source, header) build units of these specs' kernels, for
-    :func:`repro_torch.kernels.cuda_lib.build`."""
-    return [("symmetric_contraction.cu", spec_header(spec)) for spec in specs]
+def build_units(specs, precisions=("fp32",)):
+    """The (source, header) build units of these specs' kernels at these
+    precisions, for :func:`repro_torch.kernels.cuda_lib.build`."""
+    return [("symmetric_contraction.cu", spec_header(spec, p))
+            for spec in specs for p in precisions]
 
 
 # ---------------------------------------------------------------------------
@@ -157,10 +174,13 @@ def build_units(specs):
 # ---------------------------------------------------------------------------
 
 
-def symcon_plain(A_t: torch.Tensor, W_t: torch.Tensor, spec: SymConSpec) -> torch.Tensor:
-    """Port of the JAX ``symcon_xla_raw``: B_t [N, d_out, k]."""
+def symcon_plain(A_t: torch.Tensor, W_t: torch.Tensor, spec: SymConSpec,
+                 precision: str = "fp32") -> torch.Tensor:
+    """Port of the JAX ``symcon_xla_raw``: B_t [N, d_out, k], from A and W
+    rounded to ``precision``."""
     groups, p_total = _group_entries(spec, build_symcon_tables(spec))
     assert W_t.shape[1] == p_total, (W_t.shape, p_total)
+    A_t, W_t = round_to(A_t, precision), round_to(W_t, precision)
     N, _, k = A_t.shape
     cols = [None] * spec.out_spec.dim
     for (w_idx, out_idx, nu, _, ents) in groups:
@@ -178,11 +198,14 @@ def symcon_plain(A_t: torch.Tensor, W_t: torch.Tensor, spec: SymConSpec) -> torc
 
 
 def symcon_bwd_plain(
-    A_t: torch.Tensor, W_t: torch.Tensor, G_t: torch.Tensor, spec: SymConSpec
+    A_t: torch.Tensor, W_t: torch.Tensor, G_t: torch.Tensor, spec: SymConSpec,
+    precision: str = "fp32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dA_t [N, d_in, k], dW_t [N, P_total, k] by the product rule, group by
-    group (the sweep of the TPU ``_symcon_bwd_kernel``)."""
+    group (the sweep of the TPU ``_symcon_bwd_kernel``), from A, W and G
+    rounded to ``precision``."""
     groups, p_total = _group_entries(spec, build_symcon_tables(spec))
+    A_t, W_t, G_t = (round_to(t, precision) for t in (A_t, W_t, G_t))
     N, d_in, k = A_t.shape
     da = [None] * d_in
     dw = [None] * p_total
@@ -244,23 +267,25 @@ def _check_inputs(A_t, W_t, spec):
     return N, d_in, k
 
 
-def symcon_fwd(A_t: torch.Tensor, W_t: torch.Tensor, spec: SymConSpec) -> torch.Tensor:
+def symcon_fwd(A_t: torch.Tensor, W_t: torch.Tensor, spec: SymConSpec,
+               precision: str = "fp32") -> torch.Tensor:
     """B_t [N, d_out, k]: the CUDA kernel for a CUDA tensor, the plain
     version for a CPU tensor."""
     N, d_in, k = _check_inputs(A_t, W_t, spec)
     if not A_t.is_cuda:
-        return symcon_plain(A_t, W_t, spec)
+        return symcon_plain(A_t, W_t, spec, precision)
     d_out = spec.out_spec.dim
     B_t = torch.empty((N, d_out, k), dtype=A_t.dtype, device=A_t.device)
     if B_t.numel() == 0:
         return B_t
     SYMCON_FWD(A_t.data_ptr(), W_t.data_ptr(), B_t.data_ptr(), N, k,
-               header=spec_header(spec))
+               header=spec_header(spec, precision))
     return B_t
 
 
 def symcon_bwd(
-    A_t: torch.Tensor, W_t: torch.Tensor, G_t: torch.Tensor, spec: SymConSpec
+    A_t: torch.Tensor, W_t: torch.Tensor, G_t: torch.Tensor, spec: SymConSpec,
+    precision: str = "fp32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dA_t, dW_t): the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors."""
@@ -268,14 +293,27 @@ def symcon_bwd(
     d_out = spec.out_spec.dim
     _check("G_t", G_t, (N, d_out, k), A_t.device)
     if not A_t.is_cuda:
-        return symcon_bwd_plain(A_t, W_t, G_t, spec)
+        return symcon_bwd_plain(A_t, W_t, G_t, spec, precision)
     dA = torch.empty_like(A_t)
     dW = torch.empty_like(W_t)
     if dA.numel() == 0:
         return dA, dW
     SYMCON_BWD(A_t.data_ptr(), W_t.data_ptr(), G_t.data_ptr(), dA.data_ptr(),
-               dW.data_ptr(), N, k, header=spec_header(spec))
+               dW.data_ptr(), N, k, header=spec_header(spec, precision))
     return dA, dW
+
+
+def round_on_card(x: torch.Tensor, spec: SymConSpec, precision: str) -> torch.Tensor:
+    """``round_op`` of the ``(spec, precision)`` build on every element of
+    the float32 CUDA tensor ``x``: the kernels' operand rounding, to hold
+    against :func:`repro_torch.kernels.precision.round_to`."""
+    if x.dtype != torch.float32 or not x.is_cuda or not x.is_contiguous():
+        raise ValueError("round_on_card takes a contiguous float32 CUDA tensor")
+    y = torch.empty_like(x)
+    if x.numel():
+        ROUND_VALUES(x.data_ptr(), y.data_ptr(), x.numel(),
+                     header=spec_header(spec, precision))
+    return y
 
 
 def gather_weights(

@@ -15,6 +15,11 @@ twin ``kernel.symcon_plain`` (the port of ``symcon_xla_raw``), as the JAX
 package's ``_symcon_bwd_op`` takes it in XLA.  First order runs the
 hand-written kernels; only the derivative *of* the backward goes through
 the twin.  A third order raises.
+
+Precision: ``symcon_cuda(..., precision=)`` selects the kernels' operand
+rounding (``kernels/precision.py``) for the forward and the first-order
+backward; the second order stays the fp32 double VJP of ``symcon_plain`` at
+every setting, as the JAX package's twins stay fp32.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.symmetric_contraction import SymConSpec
 from repro_torch.kernels import refuse_third_order
+from repro_torch.kernels.precision import check_precision
 
 from .kernel import gather_weights, symcon_bwd, symcon_fwd, symcon_plain
 
@@ -34,10 +40,10 @@ class _SymconBwdOp(torch.autograd.Function):
     derivative is the double VJP of ``symcon_plain``."""
 
     @staticmethod
-    def forward(ctx, A_t, W_t, G_t, spec):
+    def forward(ctx, A_t, W_t, G_t, spec, precision="fp32"):
         ctx.spec = spec
         ctx.save_for_backward(A_t, W_t, G_t)
-        return symcon_bwd(A_t, W_t, G_t, spec)
+        return symcon_bwd(A_t, W_t, G_t, spec, precision)
 
     @staticmethod
     def backward(ctx, ddA, ddW):
@@ -51,23 +57,23 @@ class _SymconBwdOp(torch.autograd.Function):
                                              allow_unused=True)
         return (torch.zeros_like(a) if da is None else da,
                 torch.zeros_like(w) if dw is None else dw,
-                torch.zeros_like(g) if dg is None else dg, None)
+                torch.zeros_like(g) if dg is None else dg, None, None)
 
 
 class _SymconOp(torch.autograd.Function):
     """``(A_t [N, d_in, k], W_t [N, P, k]) -> B_t [N, d_out, k]``."""
 
     @staticmethod
-    def forward(ctx, A_t, W_t, spec):
-        ctx.spec = spec
+    def forward(ctx, A_t, W_t, spec, precision):
+        ctx.spec, ctx.precision = spec, precision
         ctx.save_for_backward(A_t, W_t)
-        return symcon_fwd(A_t, W_t, spec)
+        return symcon_fwd(A_t, W_t, spec, precision)
 
     @staticmethod
     def backward(ctx, g):
         A_t, W_t = ctx.saved_tensors
-        dA, dW = _SymconBwdOp.apply(A_t, W_t, g.contiguous(), ctx.spec)
-        return dA, dW, None
+        dA, dW = _SymconBwdOp.apply(A_t, W_t, g.contiguous(), ctx.spec, ctx.precision)
+        return dA, dW, None, None
 
 
 def symcon_cuda(
@@ -77,8 +83,11 @@ def symcon_cuda(
     spec: SymConSpec,
     *,
     block_n: int = 32,
+    precision: str = "fp32",
 ) -> torch.Tensor:
-    """Registered ``symcon/cuda`` impl: B [N, k, d_out]."""
+    """Registered ``symcon/cuda`` impl (``cuda_bf16`` / ``cuda_fp8`` at a
+    reduced ``precision``): B [N, k, d_out]."""
+    check_precision(precision)
     N = A.shape[0]
     pad = (-N) % block_n
     Wg = gather_weights(weights, species, spec)      # [N, k, P]
@@ -87,5 +96,5 @@ def symcon_cuda(
     if pad:
         A_t = F.pad(A_t, (0, 0, 0, 0, 0, pad))
         W_t = F.pad(W_t, (0, 0, 0, 0, 0, pad))
-    B_t = _SymconOp.apply(A_t.contiguous(), W_t.contiguous(), spec)
+    B_t = _SymconOp.apply(A_t.contiguous(), W_t.contiguous(), spec, precision)
     return B_t[:N].transpose(1, 2)                   # [N, k, d_out]

@@ -14,8 +14,13 @@ The paper's configuration on the card: ``--channels 128 --capacity 3072
 --correlation 2``.  ``--device cpu`` runs the kernels' plain PyTorch
 versions on the CPU instead; without it the driver needs a CUDA card.
 With ``--ckpt-dir`` the run checkpoints every 50 steps and at its end, and
-resumes from the newest checkpoint there.  The kernel impls are named
-explicitly (``cuda``).
+resumes from the newest checkpoint there.  Kernel selection, with the flags
+of ``examples/train_mace_cfm.py`` under the port's names (``pallas`` ->
+``cuda``, ``xla`` -> ``fused``): ``--impl`` (the symmetric contraction) and
+``--interaction-impl`` (``ref`` | ``fused`` | ``cuda`` | registered; by
+default the ``--impl`` name), ``--bwd-impl`` (``cuda`` | ``fused``) and
+``--precision`` (``fp32`` | ``bf16`` | ``fp8``: ``cuda`` becomes
+``cuda_bf16`` / ``cuda_fp8``).
 """
 from __future__ import annotations
 
@@ -32,6 +37,21 @@ def main(argv=None) -> int:
     ap.add_argument("--correlation", type=int, default=2)
     ap.add_argument("--max-atoms", type=int, default=256)
     ap.add_argument("--sampler", choices=["balanced", "fixed"], default="balanced")
+    ap.add_argument("--impl", default="cuda",
+                    help="symmetric-contraction impl from kernels.registry "
+                         "(ref | fused | cuda | registered)")
+    ap.add_argument("--interaction-impl", default=None,
+                    help="interaction (TP + scatter) impl from kernels.registry "
+                         "(default: the --impl name); cuda reads the edge "
+                         "blocking that collation builds for it")
+    ap.add_argument("--bwd-impl", choices=["cuda", "fused"], default="cuda",
+                    help="backward of the cuda interaction impls: cuda = the "
+                         "gather + TP-transpose kernel, fused = the VJP of "
+                         "the fused formulation")
+    ap.add_argument("--precision", default=None, choices=["fp32", "bf16", "fp8"],
+                    help="kernel operand precision: rewrites cuda impls to their "
+                         "reduced-precision variants (sums stay fp32); refuses "
+                         "impls without a variant rather than running fp32")
     ap.add_argument("--prefetch", type=int, default=1,
                     help="collate lookahead depth (0 = inline, 1 = double buffering)")
     ap.add_argument("--ckpt-dir", default=None,
@@ -47,13 +67,16 @@ def main(argv=None) -> int:
     cfg = MaceConfig(
         n_species=10, channels=args.channels, hidden_ls=(0, 1), sh_lmax=3,
         a_ls=(0, 1, 2, 3), correlation=args.correlation, n_interactions=2,
-        avg_num_neighbors=12.0, impl="cuda", interaction_impl="cuda",
+        avg_num_neighbors=12.0, impl=args.impl,
+        interaction_impl=args.interaction_impl or args.impl,
+        interaction_bwd_impl=args.bwd_impl,
     )
     ds = SyntheticCFMDataset(args.n_graphs, seed=0, max_atoms=args.max_atoms)
     tcfg = TrainerConfig(
         capacity=args.capacity, edge_factor=48,
         max_graphs=max(16, args.capacity // 8), lr=5e-3, ema_decay=0.99,
         ckpt_dir=args.ckpt_dir, ckpt_every=50, prefetch=args.prefetch,
+        precision=args.precision,
     )
     tr = Trainer(cfg, tcfg, ds, sampler=args.sampler, seed=0, device=args.device)
     if tr.maybe_restore():
@@ -61,7 +84,9 @@ def main(argv=None) -> int:
     print(f"params={param_count(tr.params):,} graphs={len(ds)} "
           f"steps/epoch={tr.sampler.steps_per_epoch()} sampler={args.sampler} "
           f"engine=sequential ranks={tcfg.n_ranks} prefetch={tcfg.prefetch} "
-          f"impl={cfg.impl} interaction={cfg.interaction_impl} device={tr.device}")
+          f"impl={tr.mace_cfg.symcon_impl_name} "
+          f"interaction={tr.mace_cfg.interaction_impl_name} "
+          f"bwd={tr.mace_cfg.interaction_bwd_impl} device={tr.device}")
 
     t0 = time.perf_counter()
     hist = tr.train(n_epochs=1_000_000, max_steps=args.steps)["history"]

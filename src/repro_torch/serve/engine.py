@@ -23,7 +23,7 @@ from repro_torch.bridge import params_to, resolve_device
 from repro_torch.core.mace import MaceConfig, mace_energy_forces
 from repro_torch.data.collate import BinShape, collate_bin
 from repro_torch.data.molecules import Molecule
-from repro_torch.kernels import registry
+from repro_torch.train.engine import interaction_consumes_blocking
 
 from .buckets import bucket_key
 
@@ -51,9 +51,7 @@ class ServeEngine:
         self.mace_cfg = mace_cfg
         self.buckets = tuple(buckets)
         self.params = params_to(params, self.device)
-        self.with_blocking = registry.get_impl(
-            "interaction", mace_cfg.interaction_impl
-        ).consumes_blocking
+        self.with_blocking = interaction_consumes_blocking(mace_cfg)
         if self.with_blocking:
             for b in self.buckets:
                 if b.block_n != mace_cfg.interaction_block_n:

@@ -122,6 +122,18 @@ def make_loss_fn(mace_cfg: MaceConfig, tcfg, n_graphs: int) -> Callable:
     return loss_fn
 
 
+def interaction_consumes_blocking(mace_cfg: MaceConfig) -> bool:
+    """True when the model's interaction impl reads pre-blocked edges: the
+    engines then ask collation for the ``blk_*`` arrays.  A name registered
+    only as a TP-only kernel (``core.interaction.resolve_interaction``'s
+    fallback) reads none."""
+    try:
+        impl = registry.get_impl("interaction", mace_cfg.interaction_impl_name)
+    except KeyError:
+        return False
+    return impl.consumes_blocking
+
+
 class SequentialEngine:
     """Per-bin loop over logical ranks on one device: gradients are
     averaged over the ranks as the all-reduce would average them."""
@@ -132,8 +144,7 @@ class SequentialEngine:
         self.device = device
         self.optimizer = optimizer
         # collation emits the blk_* arrays when the interaction impl reads them
-        self.with_blocking = registry.get_impl(
-            "interaction", mace_cfg.interaction_impl).consumes_blocking
+        self.with_blocking = interaction_consumes_blocking(mace_cfg)
         self.telemetry = RankTelemetry(self.n_ranks)
         self._loss_fn = make_loss_fn(mace_cfg, tcfg, n_graphs)
 

@@ -19,6 +19,11 @@ cannot reproduce the JAX package's ``jax.random`` draws.
 Not ported: elastic rescale, ``ElasticTrainer``, the heartbeat, the step
 watchdog, the fault plan, the shard_map and multi-host engines, gradient
 compression, and the autotuned ``"auto"`` impls.
+
+``TrainerConfig.impl``, ``interaction_impl``, ``interaction_bwd_impl`` and
+``precision``, when set, override the model config's fields of those names
+(as the JAX package's ``TrainerConfig`` does); ``Trainer.mace_cfg`` is the
+config the run uses.
 """
 from __future__ import annotations
 
@@ -59,6 +64,13 @@ class TrainerConfig:
     block_n: int = 32
     block_e: int = 128
     fixed_graphs_per_batch: int = 8   # baseline sampler's PyG-style count
+    # overrides of MaceConfig's kernel selection, when set: impl (the
+    # symmetric contraction), interaction_impl, interaction_bwd_impl ("cuda"
+    # | "fused") and precision ("fp32" | "bf16" | "fp8")
+    impl: Optional[str] = None
+    interaction_impl: Optional[str] = None
+    interaction_bwd_impl: Optional[str] = None
+    precision: Optional[str] = None
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 50
 
@@ -76,6 +88,10 @@ class Trainer:
         device: Optional[Any] = None,
     ):
         self.device = resolve_device(device)
+        overrides = {f: getattr(tcfg, f) for f in (
+            "impl", "interaction_impl", "interaction_bwd_impl", "precision")}
+        mace_cfg = dataclasses.replace(
+            mace_cfg, **{f: v for f, v in overrides.items() if v is not None})
         self.mace_cfg = mace_cfg
         self.tcfg = tcfg
         self.dataset = dataset

@@ -306,3 +306,151 @@ def test_training_step_launches_each_kernel_per_bin(dev, n_ranks):
     assert np.isfinite(hist[0]["loss"])
     assert (_kernel_launches() - before).tolist() == [2 * n_ranks, 4 * n_ranks,
                                                       2 * n_ranks, 4 * n_ranks]
+
+
+# ---------------------------------------------------------------------------
+# the precision variants and the identity-blocked launch
+# ---------------------------------------------------------------------------
+
+VARIANTS = ("bf16", "fp8")
+
+
+def test_rounding_on_card_matches_round_to(dev):
+    """Each build's ``round_op`` against the plain ``round_to``, bit for bit:
+    ties, subnormals, fp8's 448 / 464 / 465 / 480, the infinities, NaN."""
+    from repro_torch.kernels.precision import PRECISIONS, round_to
+
+    rng = np.random.default_rng(5)
+    x = np.concatenate([
+        np.asarray([0.0, -0.0, 448.0, 464.0, 465.0, -480.0, np.inf, -np.inf, np.nan,
+                    1.0625, 1.1875, 1 + 2 ** -8, 2 ** -10, 1.5 * 2 ** -9, 3.3e38], np.float32),
+        (rng.standard_normal(20_000) * np.exp(rng.uniform(-14, 8, 20_000))).astype(np.float32)])
+    for p in PRECISIONS:
+        got = sck.round_on_card(torch.from_numpy(x).to(dev), CONFIG.symcon_spec(), p)
+        want = round_to(torch.from_numpy(x), p)
+        assert np.array_equal(got.cpu().numpy().view(np.uint32), want.numpy().view(np.uint32)), p
+
+
+@pytest.mark.parametrize("precision", VARIANTS)
+@pytest.mark.parametrize("name", sorted(SYMCON_CASES))
+def test_symcon_variant_kernels_match_plain(dev, name, precision):
+    """The bf16 / fp8 builds against the plain versions at that precision,
+    and not the fp32 build's outputs."""
+    spec, A, W, G = _symcon_operands(dev, name)
+    out = sck.symcon_fwd(A, W, spec, precision)
+    _close([out], [sck.symcon_plain(A, W, spec, precision)])
+    _close(sck.symcon_bwd(A, W, G, spec, precision),
+           sck.symcon_bwd_plain(A, W, G, spec, precision))
+    assert not torch.equal(out, sck.symcon_fwd(A, W, spec))
+
+
+@pytest.mark.parametrize("precision", VARIANTS)
+@pytest.mark.parametrize("name", TP_CASES)
+def test_tp_variant_kernels_match_plain(dev, name, precision):
+    """The bf16 / fp8 builds against the plain versions at that precision
+    (the forward's messages are formed unfused, in the plain version's
+    order, so both round them alike), masked slots and padding tiles exact
+    zeros."""
+    spec, o, kw, valid, epb = _tp_operands(dev, name)
+    args = (o["Y"], o["h"], o["R"], o["local"], o["valid"], spec)
+    out = tpk.tp_scatter(*args, **kw, precision=precision)
+    _close([out], [tpk.tp_scatter_plain(*args, **kw, precision=precision)])
+    assert not torch.equal(out, tpk.tp_scatter(*args, **kw))
+    got = tpk.tp_gather_bwd(o["G"], *args, **kw, precision=precision)
+    _close(got, tpk.tp_gather_bwd_plain(o["G"], *args, **kw, precision=precision))
+    for g in got:
+        assert float(g[torch.from_numpy(~valid).to(dev)].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("E", [1, 200, 5000])
+def test_tp_cuda_identity_launch_matches_the_cpu(dev, E):
+    """``tp_cuda`` (both kernels under the identity blocking) on the card
+    against the CPU's plain versions: forward and VJP, one launch each."""
+    from repro_torch.kernels.channelwise_tp.ops import tp_cuda
+
+    spec, k = CONFIG.tp_spec_at(1), CONFIG.channels
+    rng = np.random.default_rng(E)
+    cpu = torch.device("cpu")
+    ops = [_randn(rng, cpu, E, spec.y_spec.dim), _randn(rng, cpu, E, k, spec.h_spec.dim),
+           _randn(rng, cpu, E, spec.n_paths, k)]
+    g = _randn(rng, cpu, E, k, spec.out_spec.dim)
+
+    def run(device):
+        ins = [t.to(device).requires_grad_(True) for t in ops]
+        out = tp_cuda(*ins, spec)
+        return [out.detach(), *torch.autograd.grad(out, ins, g.to(device))]
+
+    before = tpk.TP_SCATTER_FWD.launches, tpk.TP_GATHER_BWD.launches
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert (tpk.TP_SCATTER_FWD.launches, tpk.TP_GATHER_BWD.launches) == (
+        before[0] + 1, before[1] + 1)
+    _close([t.cpu() for t in got], run(cpu))
+
+
+@pytest.mark.parametrize("bwd_impl", ["cuda", "fused"])
+@pytest.mark.parametrize("blocked", [True, False], ids=["blocked", "unblocked"])
+def test_interaction_paths_grad_of_grad_match_the_cpu(dev, blocked, bwd_impl):
+    """The unblocked path and the fused backward at second order, on the
+    card against the CPU, at the paper's layer-1 widths."""
+    import dataclasses
+
+    from repro_torch.data.blocking import blocking_from_batch, blocking_to_batch
+    from repro_torch.kernels.channelwise_tp.ops import interaction_cuda_op
+
+    spec = dataclasses.replace(CONFIG.interaction_spec_at(1), bwd_impl=bwd_impl)
+    rng = np.random.default_rng(7)
+    n_atoms, E, k = 40, 1500, CONFIG.channels
+    receivers = rng.integers(0, n_atoms, E).astype(np.int32)
+    edge_mask = rng.random(E) < 0.95
+    cpu = torch.device("cpu")
+    tp = spec.tp
+    ops = dict(Y=_randn(rng, cpu, E, tp.y_spec.dim), h=_randn(rng, cpu, n_atoms, k, tp.h_spec.dim),
+               R=_randn(rng, cpu, E, tp.n_paths, k),
+               g=_randn(rng, cpu, n_atoms, k, tp.out_spec.dim),
+               senders=torch.from_numpy(rng.integers(0, n_atoms, E).astype(np.int32)),
+               receivers=torch.from_numpy(receivers), edge_mask=torch.from_numpy(edge_mask))
+    ops.update({"c" + n: torch.randn_like(ops[n]) for n in "YhR"})
+    blocking = None
+    if blocked:
+        blk = block_edges(receivers, edge_mask, n_atoms, block_n=32, block_e=128)
+        blocking = {key: torch.from_numpy(np.asarray(v))
+                    for key, v in blocking_from_batch(blocking_to_batch(blk)).items()}
+
+    def second_order(device):
+        ins = [ops[n].to(device).requires_grad_(True) for n in ("Y", "h", "R")]
+        ints = [ops[n].to(device) for n in ("senders", "receivers", "edge_mask")]
+        A = interaction_cuda_op(*ins, *ints, spec=spec, blocking=None if blocking is None
+                                else {key: v.to(device) for key, v in blocking.items()})
+        first = torch.autograd.grad((A * ops["g"].to(device)).sum(), ins, create_graph=True)
+        scalar = sum((d * ops["c" + n].to(device)).sum() for d, n in zip(first, "YhR"))
+        return torch.autograd.grad(scalar, ins)
+
+    before = tpk.TP_GATHER_BWD.launches
+    got = second_order(dev)
+    torch.cuda.synchronize()
+    assert tpk.TP_GATHER_BWD.launches - before == (1 if bwd_impl == "cuda" else 0)
+    _grad_close(got, second_order(cpu))
+
+
+def test_bf16_training_step_launches_on_the_bf16_libraries(dev):
+    """A bf16 training step launches each kernel as an fp32 one does, 2/4/2/4
+    per bin, every launch from a bf16 build."""
+    import dataclasses
+
+    from repro_torch.data.molecules import SyntheticCFMDataset
+    from repro_torch.kernels.cuda_lib import precision_define
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(CONFIG, channels=16)
+    tcfg = TrainerConfig(capacity=128, edge_factor=48, max_graphs=16, precision="bf16")
+    tr = Trainer(cfg, tcfg, SyntheticCFMDataset(64, seed=0, max_atoms=64), device=dev)
+    kernels = (sck.SYMCON_FWD, sck.SYMCON_BWD, tpk.TP_SCATTER_FWD, tpk.TP_GATHER_BWD)
+    for kern in kernels:
+        kern.reset()
+    hist = tr.train(n_epochs=1, max_steps=1)["history"]
+    torch.cuda.synchronize()
+    assert np.isfinite(hist[0]["loss"])
+    tag = precision_define("bf16")
+    assert [sum(n for h, n in kern.launches_by_header.items() if tag in h)
+            for kern in kernels] == [kern.launches for kern in kernels] == [2, 4, 2, 4]

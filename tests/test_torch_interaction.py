@@ -166,11 +166,14 @@ def test_interaction_kernel_layout_plain_versions_match_jax_raw_kernels():
 
 def test_interaction_wrappers_check_inputs():
     c = _case("random")
+    bad = dict(_torch_blocking(c["tb"]))
+    bad["perm"] = bad["perm"][:-1]
     with pytest.raises(ValueError, match="blocking"):
         interaction_cuda_op(torch.from_numpy(c["Y"]), torch.from_numpy(c["h"]),
                             torch.from_numpy(c["R"]), torch.from_numpy(c["senders"]),
                             torch.from_numpy(c["receivers"]),
-                            torch.from_numpy(c["edge_mask"]), spec=c["tspec"])
+                            torch.from_numpy(c["edge_mask"]), spec=c["tspec"],
+                            blocking=bad)
     E_p = c["tb"].perm.shape[0]
     k = c["h"].shape[1]
     tp = c["tspec"].tp

@@ -23,7 +23,7 @@ from repro.core.mace import mace_energy_forces as jforces
 from repro.data.collate import BinShape as JBinShape
 from repro.data.collate import collate_bin as jcollate
 from repro.train.checkpoint import _flatten
-from repro_torch.bridge import params_from_jax, params_to_numpy
+from repro_torch.bridge import JAX_BWD_IMPL_NAMES, params_from_jax, params_to_numpy
 from repro_torch.configs.mace_cfm import CONFIG as TCONFIG
 from repro_torch.core import cg as tcg
 from repro_torch.core.mace import MaceConfig as TConfig
@@ -89,8 +89,10 @@ def test_port_config_has_the_jax_config_widths():
     ours = {f.name: getattr(TCONFIG, f.name) for f in dataclasses.fields(TCONFIG)}
     theirs = {f.name: getattr(JCONFIG, f.name) for f in dataclasses.fields(JCONFIG)}
     assert ours.keys() - theirs.keys() == set()
-    for name in ours.keys() - {"impl", "interaction_impl"}:
+    for name in ours.keys() - {"impl", "interaction_impl", "interaction_bwd_impl"}:
         assert ours[name] == theirs[name], name
+    # the backward knob under the port's names
+    assert ours["interaction_bwd_impl"] == JAX_BWD_IMPL_NAMES[theirs["interaction_bwd_impl"]]
 
 
 def test_config_refuses_auto_until_the_autotuner_is_ported():

@@ -189,7 +189,7 @@ def _int_ints(x):
 @pytest.mark.parametrize("name", sorted(INT_CASES))
 def test_blocked_bwd_op_second_order_matches_jax(name, chunk, monkeypatch):
     """d/d(g, Y, h, R) of <c, (dY, dh, dR)> for the blocked backward op:
-    the JAX ``_blocked_bwd_op`` against ``_BlockedInteractionBwd``, with
+    the JAX ``_blocked_bwd_op`` against ``_InteractionBwd``, with
     the twin's edges taken whole and in chunks of 16."""
     monkeypatch.setattr(tp_ops, "TWIN_CHUNK_EDGES", chunk)
     jspec, tspec, x = _int_case(name, seed=len(name) + chunk)
@@ -203,7 +203,7 @@ def test_blocked_bwd_op_second_order_matches_jax(name, chunk, monkeypatch):
     ins = [_t(x[n], grad=True) for n in ("g", "Y", "h", "R")]
     ints = [_t(a) for a in _int_ints(x)]
     ints[5] = ints[5].to(torch.int32)
-    outs = tp_ops._BlockedInteractionBwd.apply(*ins, *ints, tspec)
+    outs = tp_ops._InteractionBwd.apply(*ins, *ints, tspec)
     scalar = sum((d * _t(x[c])).sum() for d, c in zip(outs, ("cY", "ch", "cR")))
     _close(torch.autograd.grad(scalar, ins), want, **GRAD_TOL)
 
@@ -259,7 +259,7 @@ def test_interaction_refuses_a_third_order():
     ins = [_t(x[n], grad=True) for n in ("g", "Y", "h", "R")]
     ints = [_t(a) for a in _int_ints(x)]
     ints[5] = ints[5].to(torch.int32)
-    dY, _, _ = tp_ops._BlockedInteractionBwd.apply(*ins, *ints, tspec)
+    dY, _, _ = tp_ops._InteractionBwd.apply(*ins, *ints, tspec)
     with pytest.raises(RuntimeError, match="second derivatives"):
         torch.autograd.grad(dY.square().sum(), ins, create_graph=True)
 

@@ -70,9 +70,32 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    gradients and update from the CPU's state; then the card's own
    trajectory: its losses, and its final parameters wherever Adam's
    update is well conditioned);
-9. report: the card's name and power limit, one JSON line of kernel
+9. data parallelism, one process per rank (``launch.multihost.spawn_local``
+   children of this script, ``--dp-rank``, sharing the card over gloo),
+   after the parent releases its cached memory: ``DataParallelEngine`` at
+   R = 2, plain and int8-compressed, and ``MultiHostEngine`` at 2 nodes x 2
+   devices, compressed, 3 steps each at capacity 3,072 from the seed's
+   weights; each run timed, then again under torch's deterministic
+   algorithms with autograd on the calling thread, and the sequential
+   oracle at the same R in a process of its own run that way too, from the
+   same weights over the same bins; in both runs each step's reduction and
+   update against the oracle's on the ranks' own gradients from the
+   step's state (within the JAX engine bounds) and the losses against the
+   oracle's (rtol 1e-5); the deterministic run's free trajectory against
+   the oracle's (parameters, optimizer state and EMA within the bound
+   wherever the oracle's Adam stayed well conditioned, the rest counted);
+   every rank a bit-identical replica with 2/4/2/4 launches per bin per
+   step; printed
+   per rank of the timed run: step ms, atoms/s, the all-reduce's ms (CUDA events around the
+   reduction, host staging and the wait for the slowest rank included), a
+   host round trip of the flat gradient, peak memory, and the measured
+   straggler ratio beside the token-count proxy of the same bins; then one
+   compressed step of a world of one through NCCL against phase 4's first
+   loss;
+10. report: the card's name and power limit, one JSON line of kernel
    numbers (each kernel at each precision, and the identity-blocked
-   interaction kernels), and last a JSON line with ``"ok": true``.
+   interaction kernels; the fp32 entries also carry the data-parallel
+   runs' launches), and last a JSON line with ``"ok": true``.
 
 Without a CUDA device it exits with code 2 before printing any result.
 """
@@ -87,6 +110,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -94,6 +118,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from repro_torch.bridge import params_to, unflatten  # noqa: E402
 from repro_torch.configs.mace_cfm import CONFIG  # noqa: E402
@@ -101,12 +126,14 @@ from repro_torch.core.mace import init_mace, mace_energy_forces  # noqa: E402
 from repro_torch.core.symmetric_contraction import symcon_ref  # noqa: E402
 from repro_torch.data.blocking import EdgeBlocking, block_edges, blocking_from_batch  # noqa: E402
 from repro_torch.data.collate import collate_bin  # noqa: E402
+from repro_torch.core.binpack import Bins, balance_metrics  # noqa: E402
 from repro_torch.data.molecules import SyntheticCFMDataset  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.kernels.channelwise_tp import kernel as tpk  # noqa: E402
 from repro_torch.kernels.channelwise_tp import ops as tp_ops  # noqa: E402
 from repro_torch.kernels.precision import PRECISIONS, round_to  # noqa: E402
 from repro_torch.kernels.symmetric_contraction import kernel as sck  # noqa: E402
+from repro_torch.launch.multihost import initialize_distributed, spawn_local  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     GraphServer,
     ServeConfig,
@@ -115,6 +142,7 @@ from repro_torch.serve import (  # noqa: E402
     select_bucket,
 )
 from repro_torch.train.checkpoint import flatten_state  # noqa: E402
+from repro_torch.train.engine import make_engine  # noqa: E402
 from repro_torch.train.optimizer import adamw, apply_updates  # noqa: E402
 from repro_torch.train.optimizer import tree_map as opt_tree_map  # noqa: E402
 from repro_torch.train.train_loop import Trainer, TrainerConfig  # noqa: E402
@@ -178,6 +206,19 @@ ROUND_TABLE = [0.0, -0.0, 448.0, 449.0, 464.0, -464.0, 465.0, -465.0, 480.0, 100
                1.0625, 1.1875, -1.0625, 1 + 2 ** -8, 1 + 3 * 2 ** -8,
                2 ** -10, 1.5 * 2 ** -9, 1.25 * 2 ** -9, 2 ** -7 * 1.0625, 3.3e38, -3.4e38]
 ROUND_RANDOM = 100_000
+
+# the data-parallel phase: each run spawns one gloo process per rank on the
+# card and is held against the sequential oracle at the same R (name,
+# engine, R, n_nodes, compressed); the JAX engine bounds of
+# tests/test_engine.py:296-302,362 per compression
+DP_RUNS = [("data_parallel_plain", "data_parallel", 2, None, False),
+           ("data_parallel_compressed", "data_parallel", 2, None, True),
+           ("multihost_compressed", "multihost", 4, 2, True)]
+DP_STEPS = 3
+DP_LOSS_RTOL = 1e-5
+DP_PARAM_TOL = {False: (2e-5, 1e-6), True: (1e-4, 2e-5)}
+DP_DEADLINE_S = 300         # each group of rank processes, start to exit
+DP_COLLECTIVE_TIMEOUT_S = 240
 
 KERNELS = {
     "symcon_fwd": dict(kernel=sck.SYMCON_FWD, symbol="symcon_fwd_kernel",
@@ -738,15 +779,16 @@ def _reset_launches():
         spec["kernel"].reset()
 
 
-def _trainer(capacity, device, params=None, ckpt_dir=None, **kernels):
+def _trainer(capacity, device, params=None, ckpt_dir=None, **overrides):
     """``examples/train_mace_cfm.py``'s trainer at the paper's width: the
     balanced sampler over ``SyntheticCFMDataset(2000, seed=0,
     max_atoms=256)``, one rank, prefetch 1, ``max_graphs = capacity // 8``;
-    random weights from ``SEED`` unless ``params`` are given; ``kernels``
-    are ``TrainerConfig``'s overrides of the model's kernel selection."""
+    random weights from ``SEED`` unless ``params`` are given; ``overrides``
+    are ``TrainerConfig`` fields (the kernel selection, the engine and its
+    ranks)."""
     tcfg = TrainerConfig(capacity=capacity, edge_factor=EDGE_FACTOR,
                          max_graphs=max(16, capacity // 8), prefetch=1,
-                         ckpt_dir=ckpt_dir, ckpt_every=0, **kernels)
+                         ckpt_dir=ckpt_dir, ckpt_every=0, **overrides)
     dataset = SyntheticCFMDataset(TRAIN_GRAPHS, seed=SEED, max_atoms=max(CAPACITIES))
     return Trainer(CONFIG, tcfg, dataset, seed=SEED, params=params, device=device)
 
@@ -768,12 +810,12 @@ def train_steps(tr):
     is set to 0 just before the run and read just after."""
     rows, engine_step = [], tr.engine.step
 
-    def timed_step(params, opt_state, batches, step):
+    def timed_step(params, opt_state, ef_state, batches, step):
         before = _launches()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = engine_step(params, opt_state, batches, step)
+        out = engine_step(params, opt_state, ef_state, batches, step)
         end.record()
         torch.cuda.synchronize()
         after = _launches()
@@ -1108,6 +1150,328 @@ def compare_training_with_cpu():
                              "where Adam is well conditioned")
 
 
+
+# ---------------------------------------------------------------------------
+# phase 9: data parallelism, one process per rank
+# ---------------------------------------------------------------------------
+
+
+def _oracle_step(oracle, n_nodes, state, local, out, step):
+    """Rank 0 of a distributed run, after it: the sequential oracle's
+    reduction and update (``SequentialEngine.finalize``) on every rank's
+    gradients, metrics and residuals of one step, from that step's own
+    state, against the engine's result: its parameters and optimizer
+    state, and every rank's new residual.  Every rank takes part in the gathers;
+    returns ``(elements beyond the bound, bit-identical, all)`` on rank 0,
+    else None."""
+    rank, R = dist.get_rank(), dist.get_world_size()
+    (grads, metrics), ef_state = local, state[2]
+
+    def gather(tree):
+        """Every rank's flat {path: tensor} of ``tree``, on rank 0."""
+        flat = flatten_state(tree)
+        mine = torch.cat([v.reshape(-1) for v in flat.values()]).cpu()
+        rows = [torch.empty_like(mine) for _ in range(R)] if rank == 0 else None
+        dist.gather(mine, rows, dst=0)
+        trees = []
+        for row in rows or []:
+            row, at, tree_r = row.to(oracle.device), 0, {}
+            for k, v in flat.items():
+                tree_r[k] = row[at:at + v.numel()].view_as(v)
+                at += v.numel()
+            trees.append(tree_r)
+        return trees
+
+    grads_l, metrics_l = gather(grads), gather(metrics)
+    if oracle.compress:
+        ef_l, new_ef_l = gather(ef_state), gather(out[2])
+    if rank != 0:
+        return None
+    if oracle.compress:
+        # one residual per quantisation site: every rank's, or each node's
+        sites = range(0, R, R // n_nodes) if n_nodes else range(R)
+        ef_state = unflatten({k: torch.cat([ef_l[r][k] for r in sites]) for k in ef_l[0]})
+    p, o, e, _ = oracle.finalize(state[0], state[1], ef_state, grads_l, metrics_l, step)
+    rtol, atol = DP_PARAM_TOL[oracle.compress]
+    pairs = [(flatten_state({"params": p, "opt_state": o}),
+              flatten_state({"params": out[0], "opt_state": out[1]}))]
+    if oracle.compress:
+        site = (lambda r: r // (R // n_nodes)) if n_nodes else (lambda r: r)
+        e = flatten_state(e)
+        pairs += [({k: v[site(r)] for k, v in e.items()}, {k: v[0] for k, v in new_ef_l[r].items()})
+                  for r in range(R)]
+    beyond = bitwise = total = 0
+    for want, got in pairs:
+        for k, w in want.items():
+            g = got[k]
+            beyond += int(((g - w).abs() > atol + rtol * w.abs()).sum())
+            bitwise += int((g == w).sum())
+            total += w.numel()
+    return beyond, bitwise, total
+
+
+def dp_rank(cfg) -> int:
+    """One process of the data-parallel phase (``chip_smoke.py --dp-rank
+    CFG``): a rank of a ``torch.distributed`` group on the card, or, with
+    the ``sequential`` engine, the oracle at R logical ranks.  Trains
+    ``cfg["steps"]`` steps at the paper's width from ``SEED``'s weights and
+    writes to ``cfg["out"]`` its final state (``rank<r>.npz``) and a
+    record (``rank<r>.json``): losses; per step the CUDA-event ms of the
+    engine step and of the gradient reduction (the all-reduce, host
+    staging included), the atoms and each kernel's launches, and, on rank 0
+    of a gloo group, ``_oracle_step``'s counts; the per-rank
+    telemetry; the peak memory; the time of one host round trip of the
+    flat gradient (gloo's staging); and (``held<r>.npz``, read for the
+    oracle) where Adam's denominator stayed 0 or above ``ADAM_HELD_EPS``
+    eps at every step.  With ``cfg["deterministic"]`` it runs torch's
+    deterministic algorithms and autograd on its own thread, so that its
+    gradients are those of any other such process on the same bin, bit
+    for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if cfg["deterministic"]:
+        # sorted index_add_, and backward on this thread: on autograd's
+        # worker thread a process's first backward differs from its later
+        # ones in the last bits
+        torch.use_deterministic_algorithms(True)
+        torch.autograd.set_multithreading_enabled(False)
+    distributed = cfg["engine"] != "sequential"
+    if distributed:
+        initialize_distributed(backend=cfg["backend"], timeout_s=DP_COLLECTIVE_TIMEOUT_S)
+    rank = dist.get_rank() if distributed else 0
+    torch.cuda.reset_peak_memory_stats()
+    tr = _trainer(TRAIN_ATOMS, None, engine=cfg["engine"], n_ranks=cfg["n_ranks"],
+                  n_nodes=cfg["n_nodes"], compress_grads=cfg["compress"])
+    engine_step, engine_grads = tr.engine.step, tr.engine.grads
+    reduce = getattr(tr.engine, "reduce_grads", None)
+    # gloo groups: rank 0 gathers every rank's step on the host
+    oracle = (make_engine("sequential", tr.mace_cfg, dataclasses.replace(
+        tr.tcfg, engine="sequential"), tr.optimizer, tr.tcfg.max_graphs, tr.device)
+        if distributed and cfg["backend"] == "gloo" else None)
+    rows, reduce_ms, local, steps = [], [], [], []
+    held = {k: torch.ones_like(v, dtype=torch.bool)
+            for k, v in flatten_state(tr.params).items()}
+
+    def kept_grads(params, batch):
+        local[:] = [engine_grads(params, batch)]
+        return local[0]
+
+    def timed_reduce(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = reduce(*args)
+        end.record()
+        torch.cuda.synchronize()
+        reduce_ms.append(start.elapsed_time(end))
+        return out
+
+    def timed_step(params, opt_state, ef_state, batches, step):
+        nonlocal held
+        before = _launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = engine_step(params, opt_state, ef_state, batches, step)
+        end.record()
+        torch.cuda.synchronize()
+        after = _launches()
+        rows.append(dict(ms=start.elapsed_time(end),
+                         atoms=sum(float(b["node_mask"].sum()) for b in batches),
+                         launches={k: after[k] - before[k] for k in after}))
+        if oracle is not None:  # checked after the run, so no rank waits on it
+            steps.append((opt_tree_map(lambda t: t.cpu(), (
+                (params, opt_state, ef_state), local[0], out[:3])), step))
+        denom = _adam_denominator(out[1], step)
+        held = {k: held[k] & ((denom[k] == 0) | (denom[k] > ADAM_HELD_EPS * ADAM_EPS))
+                for k in held}
+        return out
+
+    tr.engine.step = timed_step
+    if distributed:
+        tr.engine.grads, tr.engine.reduce_grads = kept_grads, timed_reduce
+    _reset_launches()
+    hist = tr.train(n_epochs=1, max_steps=cfg["steps"])["history"]
+    torch.cuda.synchronize()
+    for row, (record, step) in zip(rows, steps):
+        record = opt_tree_map(lambda t: t.to(tr.device), record)
+        row["oracle_step"] = _oracle_step(oracle, cfg["n_nodes"], *record, step)
+    n_params = sum(v.numel() for v in flatten_state(tr.params).values())
+    flat = torch.zeros(n_params, device=tr.device)
+    staging_ms = _time_ms(lambda: flat.copy_(flat.cpu()), reps=5)
+    out = Path(cfg["out"])
+    np.savez(out / f"rank{rank}.npz",
+             **{k: v.cpu().numpy() for k, v in flatten_state(tr._state()).items()})
+    np.savez(out / f"held{rank}.npz", **{k: v.cpu().numpy() for k, v in held.items()})
+    tel = tr.telemetry
+    (out / f"rank{rank}.json").write_text(json.dumps(dict(
+        losses=[h["loss"] for h in hist], rows=rows, reduce_ms=reduce_ms,
+        work=tel.straggler_matrix().tolist(), loads=tel.load_matrix().tolist(),
+        peak_bytes=torch.cuda.max_memory_allocated(), staging_ms=staging_ms,
+        n_params=n_params, local=list(tr.engine.local_rank_range),
+        bins=tr.sampler.bins_for_epoch(0)[:cfg["steps"] * cfg["n_ranks"]])))
+    if distributed:
+        dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(root, name, n_procs, **cfg):
+    """Run ``dp_rank`` in ``n_procs`` processes (one group) and read back
+    each one's record and final state; a failed process fails the phase."""
+    out = Path(root) / name
+    out.mkdir()
+    cfg = dict(cfg, out=str(out), steps=cfg.get("steps", DP_STEPS))
+    t0 = time.perf_counter()
+    # cuBLAS is deterministic under torch's deterministic mode only with a
+    # fixed workspace
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"} if cfg["deterministic"] else None
+    group = spawn_local(n_procs, [sys.executable, str(Path(__file__).resolve()),
+                                  "--dp-rank", json.dumps(cfg)], env=env,
+                        log_dir=str(out / "logs"))
+    codes = group.wait(timeout=DP_DEADLINE_S)
+    if codes != [0] * n_procs:
+        for p in group.procs:
+            print(f"{name} process {p.process_id} log tail:\n"
+                  f"{Path(p.log_path).read_text()[-4000:]}", flush=True)
+        raise AssertionError(f"{name}: rank processes exited {codes}")
+    print(f"{name}: {n_procs} process(es) done in {time.perf_counter() - t0:.1f}s", flush=True)
+    return [(json.loads((out / f"rank{r}.json").read_text()),
+             dict(np.load(out / f"rank{r}.npz")), dict(np.load(out / f"held{r}.npz")))
+            for r in range(n_procs)]
+
+
+def _check_replicas(name, ranks):
+    """Every rank bit-identical to rank 0 (a synchronous replica), each
+    having collated only its own bin, with 2/4/2/4 launches per step."""
+    info0, state0, _ = ranks[0]
+    for r, (info, state, _) in enumerate(ranks):
+        diff = [k for k in state0 if not k.startswith("ef/")
+                and not np.array_equal(state[k], state0[k])]
+        if diff or info["losses"] != info0["losses"]:
+            raise AssertionError(f"{name}: rank {r} is not rank 0's replica ({diff[:3]})")
+        if info["local"] != [r]:
+            raise AssertionError(f"{name}: rank {r} collated bins {info['local']}")
+        for step, row in enumerate(info["rows"]):
+            if row["launches"] != PER_BIN:
+                raise AssertionError(f"{name}: rank {r} step {step} launched "
+                                     f"{row['launches']}, expected {PER_BIN}")
+
+
+def _hold_against_oracle(name, ranks, det, oracle, compress, card):
+    """The timed run ``ranks`` and its deterministic twin ``det`` against
+    the deterministic sequential oracle at the same R.  In both runs every
+    rank is a bit-identical replica with 2/4/2/4 launches per step, and each
+    step's reduction and update equal the oracle's on the ranks' own
+    gradients from the step's own state (parameters, optimizer state and
+    residuals within the JAX engine bounds); rank 0's losses are within
+    rtol 1e-5 of the oracle's.  Free running, ``det``'s parameters,
+    optimizer state and EMA are within the bound wherever the oracle's
+    Adam stayed well conditioned, plain and compressed, and the rest are
+    counted.  The timed run's free trajectory is not held element by
+    element: the card's ``index_add_`` sums in no fixed order, and the
+    oracle run twice that way differs from itself beyond the bound."""
+    rtol, atol = DP_PARAM_TOL[compress]
+    want_info, want, held = oracle[0]
+    for run, label in ((ranks, name), (det, f"{name}_deterministic")):
+        _check_replicas(label, run)
+        steps = [row["oracle_step"] for row in run[0][0]["rows"]]
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(run[0][0]["losses"], want_info["losses"]))
+        print(f"{label}: each step's reduction and update against the oracle's on the "
+              f"ranks' gradients from the step's state (beyond rtol {rtol:g} / atol "
+              f"{atol:g}, bit-identical, of): {steps}; losses {run[0][0]['losses']} vs "
+              f"the deterministic oracle's {want_info['losses']} (max rel "
+              f"{loss_err:.3e}, tol {DP_LOSS_RTOL:g}); card {card}", flush=True)
+        if loss_err > DP_LOSS_RTOL or any(b for b, _, _ in steps):
+            raise AssertionError(f"{label} differs from the sequential oracle")
+    state0 = det[0][1]
+    n = dict(held=0, over=0, free=0, free_over=0, bitwise=0, all=0)
+    for k, w in want.items():
+        if k.startswith("ef/"):
+            continue
+        # params/<p>, ema/<p>, opt_state/#<i>/<m|v>/<p>: the mask of <p>
+        parts = k.split("/")
+        mask = held["/".join(parts[3:] if parts[0] == "opt_state" else parts[1:])]
+        over = np.abs(state0[k] - w) - atol - rtol * np.abs(w) > 0
+        n["held"] += int(mask.sum())
+        n["over"] += int((over & mask).sum())
+        n["free"] += int((~mask).sum())
+        n["free_over"] += int((over & ~mask).sum())
+        n["bitwise"] += int((state0[k] == w).sum())
+        n["all"] += w.size
+    print(f"{name}_deterministic free running against the sequential oracle at "
+          f"R={len(det)}: parameters, optimizer state, EMA: {n['over']} of {n['held']} "
+          f"held beyond rtol {rtol:g} / atol {atol:g}; {n['free']} not held (where "
+          f"Adam's denominator came within {ADAM_HELD_EPS:g} eps), {n['free_over']} of "
+          f"them beyond (reported); {n['bitwise']} of {n['all']} bit-identical; card "
+          f"{card}", flush=True)
+    if n["over"]:
+        raise AssertionError(f"{name}_deterministic differs from the sequential oracle")
+
+
+def _report_ranks(name, ranks, card):
+    """Per-rank step ms, atoms/s, all-reduce ms and peak memory; the
+    measured straggler ratio beside the token-count proxy of the same
+    bins."""
+    for r, (info, _, _) in enumerate(ranks):
+        ms = [row["ms"] for row in info["rows"]]
+        rate = [row["atoms"] / row["ms"] * 1e3 for row in info["rows"]]
+        print(f"{name} rank {r}: step_ms={[round(x, 2) for x in ms]} "
+              f"atoms_per_s={[round(x, 1) for x in rate]} "
+              f"allreduce_ms={[round(x, 3) for x in info['reduce_ms']]} "
+              f"staging_round_trip_ms={info['staging_ms']:.3f} "
+              f"({info['n_params']} floats) peak_memory_allocated_gb="
+              f"{info['peak_bytes'] / 2**30:.2f}; card {card}", flush=True)
+    # steps 2 on: the first step loads the kernels and touches memory first
+    info = ranks[0][0]
+    R = len(info["work"][0])
+    bins = Bins(info["bins"][R:], SyntheticCFMDataset(
+        TRAIN_GRAPHS, seed=SEED, max_atoms=max(CAPACITIES)).sizes, TRAIN_ATOMS)
+    proxy = balance_metrics(bins, R)
+    measured = balance_metrics(bins, R, measured_work=np.asarray(info["work"])[1:])
+    print(f"{name}: straggler ratio measured {measured.straggler_ratio:.4f} (steps 2-"
+          f"{len(info['work'])}, per-rank forward+backward seconds from RankTelemetry) vs "
+          f"token-count proxy {proxy.straggler_ratio:.4f} (the same steps' bins, atoms "
+          f"{info['loads'][1:]}); card {card}", flush=True)
+
+
+def data_parallel(card, first_loss):
+    """Phase 9: each run of ``DP_RUNS`` as ``spawn_local`` processes on the
+    card (gloo, the ranks share one card), timed; again under
+    deterministic algorithms; and the deterministic sequential oracle at
+    the same R, each from ``SEED``'s weights over the same bins; then one
+    step of a world of one through NCCL.  Returns each kernel's launches
+    per timed run, summed over its ranks."""
+    torch.cuda.empty_cache()  # the parent's cached blocks, for the children
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, engine, R, n_nodes, compress in DP_RUNS:
+            common = dict(n_ranks=R, n_nodes=n_nodes, compress=compress)
+            ranks = _spawn_ranks(root, name, R, engine=engine, backend="gloo",
+                                 deterministic=False, **common)
+            det = _spawn_ranks(root, f"{name}_deterministic", R, engine=engine,
+                               backend="gloo", deterministic=True, **common)
+            oracle = _spawn_ranks(root, f"{name}_oracle", 1, engine="sequential",
+                                  deterministic=True, **common)
+            _report_ranks(name, ranks, card)
+            _hold_against_oracle(name, ranks, det, oracle, compress, card)
+            launches[name] = {k: sum(sum(row["launches"][k] for row in info["rows"])
+                                     for info, _, _ in ranks) for k in PER_BIN}
+        # compressed: a group of one is still quantised, so the gradients
+        # go through NCCL's all_reduce (MAX of the scales, SUM of the payload)
+        (info, _, _), = _spawn_ranks(root, "nccl", 1, engine="data_parallel",
+                                     backend="nccl", n_ranks=1, n_nodes=None,
+                                     compress=True, steps=1, deterministic=False)
+        err = abs(info["losses"][0] - first_loss) / abs(first_loss)
+        print(f"nccl: one step of a world of one, loss {info['losses'][0]:.7f} against "
+              f"phase 4's first {first_loss:.7f} (rel {err:.2e}, tol {DP_LOSS_RTOL:g}), "
+              f"step_ms={info['rows'][0]['ms']:.2f} allreduce_ms="
+              f"{info['reduce_ms'][0]:.3f} launches={info['rows'][0]['launches']}; "
+              f"card {card}", flush=True)
+        if err > DP_LOSS_RTOL or info["rows"][0]["launches"] != PER_BIN:
+            raise AssertionError("the NCCL step differs from the sequential one")
+        launches["nccl"] = info["rows"][0]["launches"]
+    return launches
+
+
 def kernel_units():
     """(label, (source, header)) of the nine kernel libraries: the
     symmetric contraction's spec and both layers' tensor-product specs, each
@@ -1122,12 +1486,14 @@ def kernel_units():
 
 
 def kernel_entries(results, training, identity, launches, train, train_profile,
-                   variant_launches, bf16_training_launches, identity_launches):
+                   variant_launches, bf16_training_launches, identity_launches,
+                   dp_launches):
     """The ``kernels`` JSON line: each kernel at fp32 (the serving run's
-    launches, with its training-step numbers), at bf16 and fp8 (the
-    launches of the serving run at that precision; bf16 also the variant
-    training run's), and the identity-blocked interaction kernels (the
-    unblocked bin's launches)."""
+    launches, with its training-step numbers and the data-parallel runs'
+    launches summed over their ranks), at bf16 and fp8 (the launches of the
+    serving run at that precision; bf16 also the variant training run's),
+    and the identity-blocked interaction kernels (the unblocked bin's
+    launches)."""
     entries = []
     for name, spec in KERNELS.items():
         common = dict(route="cuda", source=spec["source"], replaces=spec["replaces"])
@@ -1154,7 +1520,8 @@ def kernel_entries(results, training, identity, launches, train, train_profile,
                     training_launches_per_step=[r["launches"][name] for r in train["rows"]],
                     training_device_ms_per_step=train_profile[name]["device_ms"],
                     training_device_launches_recorded=train_profile[name]["recorded"],
-                    training_device_launches_made=train_profile[name]["made"])
+                    training_device_launches_made=train_profile[name]["made"],
+                    data_parallel_launches={run: n[name] for run, n in dp_launches.items()})
             elif p == "bf16":
                 entry.update(training_launches=bf16_training_launches[name])
             entries.append(entry)
@@ -1177,6 +1544,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dp-rank"]:
+        return dp_rank(json.loads(sys.argv[2]))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1227,11 +1596,13 @@ def main() -> int:
     checkpoint_round_trip(tr)
     compare_with_cpu(params, mols, results, buckets)
     compare_training_with_cpu()
+    dp_launches = data_parallel(card, train["history"][0]["loss"])
 
     print(card)
     print(json.dumps({"kernels": kernel_entries(
         kernel_results, training_results, identity_results, launches, train,
-        train_profile, variant_launches, bf16_training_launches, identity_launches)}))
+        train_profile, variant_launches, bf16_training_launches, identity_launches,
+        dp_launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

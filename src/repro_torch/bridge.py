@@ -1,6 +1,6 @@
 """Parameter bridge between the JAX package's pytrees and the port, the map
-from the JAX package's kernel names to the port's, and the placement of
-parameters on the port's device.
+from the JAX package's kernel and engine names to the port's, and the
+placement of parameters on the port's device.
 
 Torch cannot reproduce ``jax.random``, so a test gives both models the same
 weights by converting the JAX parameters (as numpy) into the port's nested
@@ -28,6 +28,10 @@ JAX_IMPL_NAMES = {"ref": "ref", "fused": "fused", "pallas": "cuda",
 JAX_BWD_IMPL_NAMES = {"pallas": "cuda", "xla": "fused"}
 JAX_CAPABILITY_FIELDS = {"uses_pallas": "uses_kernel"}
 JAX_PLATFORMS = {"cpu": "cpu", "gpu": "gpu", "tpu": "gpu"}
+# the JAX package's execution engines (``TrainerConfig.engine``): its
+# shard_map engine is the port's one-process-per-rank data-parallel engine
+JAX_ENGINE_NAMES = {"sequential": "sequential", "shard_map": "data_parallel",
+                    "multihost": "multihost"}
 
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:

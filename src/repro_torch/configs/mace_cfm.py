@@ -1,6 +1,7 @@
 """The paper's own workload: MACE CFM (§5.2 hyperparameters), on the port's
 CUDA kernels.  The widths are those of the JAX package's
-``configs/mace_cfm.py::CONFIG``; only the impl names differ."""
+``configs/mace_cfm.py`` ``CONFIG`` and ``REDUCED`` (CPU-sized); the impl
+names differ, and ``REDUCED`` has the dataset's 10 species (below)."""
 from repro_torch.core.mace import MaceConfig
 
 CONFIG = MaceConfig(
@@ -15,5 +16,15 @@ CONFIG = MaceConfig(
     num_bessel=8,
     avg_num_neighbors=14.0,
     impl="cuda",
+    interaction_impl="cuda",
+)
+
+# The JAX REDUCED has n_species=8, but SyntheticCFMDataset draws 10 species
+# (data/molecules.py N_SPECIES): XLA clamps the out-of-range embedding
+# gathers of species 8 and 9 onto row 7, where torch raises.  The port's
+# reduced config covers the dataset's species.
+REDUCED = MaceConfig(
+    n_species=10, channels=8, hidden_ls=(0, 1), sh_lmax=2, a_ls=(0, 1, 2),
+    correlation=2, n_interactions=2, avg_num_neighbors=8.0, impl="cuda",
     interaction_impl="cuda",
 )

@@ -14,7 +14,22 @@ The paper's configuration on the card: ``--channels 128 --capacity 3072
 --correlation 2``.  ``--device cpu`` runs the kernels' plain PyTorch
 versions on the CPU instead; without it the driver needs a CUDA card.
 With ``--ckpt-dir`` the run checkpoints every 50 steps and at its end, and
-resumes from the newest checkpoint there.  Kernel selection, with the flags
+resumes from the newest checkpoint there.  Data parallelism, with the
+flags of ``examples/train_mace_cfm.py`` (engine names through
+``bridge.JAX_ENGINE_NAMES``: ``shard_map`` -> ``data_parallel``):
+``--engine`` (``sequential``, the one-process oracle over ``--n-ranks``
+logical ranks; ``data_parallel`` or ``multihost``, one process per rank),
+``--n-nodes`` (the two-level packing and the hierarchical reduction),
+``--compress-grads`` (the int8 error-feedback all-reduce), and ``--nprocs
+N``, which starts N copies of this command as one process group through
+``launch.multihost.spawn_local`` (gloo on the CPU or when the ranks share
+one card, else NCCL):
+
+    PYTHONPATH=src python -m repro_torch.launch.train_mace_cfm --device cpu \
+        --nprocs 2 --engine data_parallel --compress-grads --steps 3 \
+        --n-graphs 16 --capacity 48 --channels 4 --max-atoms 24
+
+Kernel selection, with the flags
 of ``examples/train_mace_cfm.py`` under the port's names (``pallas`` ->
 ``cuda``, ``xla`` -> ``fused``): ``--impl`` (the symmetric contraction) and
 ``--interaction-impl`` (``ref`` | ``fused`` | ``cuda`` | registered; by
@@ -25,6 +40,8 @@ default the ``--impl`` name), ``--bwd-impl`` (``cuda`` | ``fused``) and
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 
 
@@ -52,6 +69,21 @@ def main(argv=None) -> int:
                     help="kernel operand precision: rewrites cuda impls to their "
                          "reduced-precision variants (sums stay fp32); refuses "
                          "impls without a variant rather than running fp32")
+    ap.add_argument("--engine", default="sequential",
+                    choices=["sequential", "data_parallel", "multihost"])
+    ap.add_argument("--n-ranks", type=int, default=0,
+                    help="data-parallel ranks (bins per step); defaults to "
+                         "--nprocs for data_parallel/multihost, else 1")
+    ap.add_argument("--n-nodes", type=int, default=0,
+                    help="pod nodes for the two-level packing and the "
+                         "hierarchical reduction; must divide --n-ranks")
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--nprocs", type=int, default=0,
+                    help="start this many copies of this command as one "
+                         "process group (one rank each)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the process group named by the REPRO_* env "
+                         "vars (what --nprocs passes its children)")
     ap.add_argument("--prefetch", type=int, default=1,
                     help="collate lookahead depth (0 = inline, 1 = double buffering)")
     ap.add_argument("--ckpt-dir", default=None,
@@ -59,10 +91,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain PyTorch versions; default the CUDA card")
     args = ap.parse_args(argv)
+    if args.nprocs and not args.distributed:
+        return _spawn(args, argv)
 
-    from repro_torch.core.mace import MaceConfig, param_count
+    from repro_torch.core.mace import MaceConfig
     from repro_torch.data.molecules import SyntheticCFMDataset
-    from repro_torch.train.train_loop import Trainer, TrainerConfig
+    from repro_torch.train.train_loop import TrainerConfig
 
     cfg = MaceConfig(
         n_species=10, channels=args.channels, hidden_ls=(0, 1), sh_lmax=3,
@@ -72,18 +106,77 @@ def main(argv=None) -> int:
         interaction_bwd_impl=args.bwd_impl,
     )
     ds = SyntheticCFMDataset(args.n_graphs, seed=0, max_atoms=args.max_atoms)
+    device = args.device
+    if args.distributed:
+        device = _join_group(args)
+    n_ranks = args.n_ranks or (args.nprocs if args.engine != "sequential" else 1)
     tcfg = TrainerConfig(
         capacity=args.capacity, edge_factor=48,
         max_graphs=max(16, args.capacity // 8), lr=5e-3, ema_decay=0.99,
         ckpt_dir=args.ckpt_dir, ckpt_every=50, prefetch=args.prefetch,
-        precision=args.precision,
+        precision=args.precision, engine=args.engine, n_ranks=n_ranks,
+        n_nodes=args.n_nodes or None, compress_grads=args.compress_grads,
     )
-    tr = Trainer(cfg, tcfg, ds, sampler=args.sampler, seed=0, device=args.device)
+    try:
+        return _train(args, cfg, tcfg, ds, device)
+    finally:
+        if args.distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _spawn(args, argv) -> int:
+    """Start ``args.nprocs`` copies of this command as one process group and
+    wait for them; a failed child fails the run."""
+    from repro_torch.launch.multihost import spawn_local
+
+    if args.engine == "sequential":
+        raise SystemExit("--nprocs needs --engine data_parallel or multihost: "
+                         "the sequential engine runs in one process")
+    argv = list(sys.argv[1:] if argv is None else argv)
+    child = [sys.executable, "-m", "repro_torch.launch.train_mace_cfm", *argv,
+             "--distributed"]
+    codes = spawn_local(args.nprocs, child).wait()
+    for i, c in enumerate(codes):
+        print(f"process {i}: exit {c}")
+    return max(abs(c) for c in codes)
+
+
+def _join_group(args) -> str:
+    """Join the process group of the REPRO_* env vars; returns this rank's
+    device."""
+    import torch
+
+    from repro_torch.launch.multihost import (
+        ENV_PROCESS_ID,
+        choose_backend,
+        initialize_distributed,
+    )
+
+    device = args.device or "cuda"
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA card is visible; pass --device cpu")
+        device = f"cuda:{int(os.environ[ENV_PROCESS_ID]) % torch.cuda.device_count()}"
+    backend = choose_backend(device, args.nprocs)
+    initialize_distributed(backend=backend)
+    print(f"rank {torch.distributed.get_rank()}/{args.nprocs}: backend {backend}, "
+          f"device {device}", flush=True)
+    return device
+
+
+def _train(args, cfg, tcfg, ds, device) -> int:
+    from repro_torch.core.mace import param_count
+    from repro_torch.train.train_loop import Trainer
+
+    tr = Trainer(cfg, tcfg, ds, sampler=args.sampler, seed=0, device=device)
     if tr.maybe_restore():
         print(f"resumed from step {tr.global_step}")
     print(f"params={param_count(tr.params):,} graphs={len(ds)} "
           f"steps/epoch={tr.sampler.steps_per_epoch()} sampler={args.sampler} "
-          f"engine=sequential ranks={tcfg.n_ranks} prefetch={tcfg.prefetch} "
+          f"engine={tcfg.engine} ranks={tcfg.n_ranks} nodes={tcfg.n_nodes} "
+          f"compress={tcfg.compress_grads} prefetch={tcfg.prefetch} "
           f"impl={tr.mace_cfg.symcon_impl_name} "
           f"interaction={tr.mace_cfg.interaction_impl_name} "
           f"bwd={tr.mace_cfg.interaction_bwd_impl} device={tr.device}")

@@ -1,9 +1,11 @@
-"""Atomic-commit checkpoints of nested dicts of tensors, single process.
+"""Atomic-commit checkpoints of nested dicts of tensors, from one process
+or several.
 
 Port of the JAX package's ``train/checkpoint.py`` with its on-disk format,
 so that a checkpoint written by either package restores into the other:
 
-* ``<dir>/step_<n:010d>/arrays.0.npz``: the leaves, keyed by tree path —
+* ``<dir>/step_<n:010d>/arrays.<proc>.npz``: the leaves of each process's
+  shard, keyed by tree path —
   dict keys as they are, tuple indices as ``#i``, joined by ``/`` (the
   JAX package's ``_path_str``);
 * ``meta.json`` with ``step``, ``process_count`` and a SHA-256 per shard
@@ -12,10 +14,15 @@ so that a checkpoint written by either package restores into the other:
   fsynced; staging in ``tmp.<step>.0`` and one atomic rename;
 * retention of the newest ``keep`` committed steps;
 * a restore that verifies the shard's checksum and falls back to the
-  previous committed step when it does not match.
+  previous committed step when it does not match;
+* the multi-process commit: every process writes its own shard
+  ``arrays.<proc>.npz`` into one shared staging directory
+  ``tmp.<step>.shared``, fsyncs it, and only after a barrier does process 0
+  write ``meta.json`` and the marker and rename, so a checkpoint never
+  commits with a shard missing, and a crash before the rename leaves the
+  previous checkpoint the newest.
 
-Not ported: the multi-process shared commit and the fault-injection site
-of the JAX module.
+Not ported: the fault-injection site of the JAX module.
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ import os
 import shutil
 import sys
 import warnings
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,33 +111,25 @@ def _step_dir(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:010d}")
 
 
-def save_checkpoint(
-    directory: str,
-    step: int,
-    state: Tree,
-    *,
-    meta: Optional[Dict[str, Any]] = None,
-    keep: int = 3,
-) -> str:
-    """Atomic checkpoint commit: stage into ``tmp.<step>.0``, fsync the
-    payload, write ``meta.json`` (with the payload's SHA-256) and the
-    ``COMMITTED`` marker, rename to ``step_<n>``, then drop all but the
-    newest ``keep`` committed steps."""
-    os.makedirs(directory, exist_ok=True)
-    final = _step_dir(directory, step)
-    tmp = os.path.join(directory, f"tmp.{step}.0")
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+def _write_shard(tmp: str, process_index: int, state: Tree) -> None:
+    """One process's shard, fsynced before anyone may commit."""
     flat = {k: _to_numpy(v) for k, v in flatten_state(state).items()}
-    with open(os.path.join(tmp, "arrays.0.npz"), "wb") as f:
+    with open(os.path.join(tmp, f"arrays.{process_index}.npz"), "wb") as f:
         np.savez(f, **flat)
         f.flush()
         os.fsync(f.fileno())
-    checksums = {"arrays.0.npz": _sha256_file(os.path.join(tmp, "arrays.0.npz"))}
+
+
+def _commit(directory: str, tmp: str, final: str, step: int,
+            meta: Optional[Dict[str, Any]], process_count: int) -> None:
+    """``meta.json`` (with a SHA-256 per shard) and the ``COMMITTED`` marker,
+    written after every payload byte is on disk, then one atomic rename."""
+    checksums = {name: _sha256_file(os.path.join(tmp, name))
+                 for name in sorted(os.listdir(tmp))
+                 if name.startswith("arrays.") and name.endswith(".npz")}
     with open(os.path.join(tmp, "meta.json"), "w") as f:
-        json.dump({"step": step, "process_count": 1, "checksums": checksums,
-                   **(meta or {})}, f)
+        json.dump({"step": step, "process_count": process_count,
+                   "checksums": checksums, **(meta or {})}, f)
         f.flush()
         os.fsync(f.fileno())
     # the marker last: every payload byte is on disk before it exists
@@ -143,20 +142,77 @@ def save_checkpoint(
         shutil.rmtree(final)
     os.rename(tmp, final)
     _fsync_dir(directory)
-    _gc(directory, keep)
+
+
+def save_checkpoint(
+    directory: str,
+    step: int,
+    state: Tree,
+    *,
+    meta: Optional[Dict[str, Any]] = None,
+    keep: int = 3,
+    process_index: int = 0,
+    process_count: int = 1,
+    barrier: Optional[Callable[[str], None]] = None,
+) -> str:
+    """Atomic checkpoint commit; ``state`` is this process's shard.
+
+    One process: stage into ``tmp.<step>.<proc>``, fsync the payload, write
+    ``meta.json`` and the marker, rename to ``step_<n>``, then drop all but
+    the newest ``keep`` committed steps.  Several processes
+    (``process_count > 1``, ``barrier`` required, e.g. the engine's): all
+    stage into one shared ``tmp.<step>.shared``, and the commit waits for
+    every shard:
+
+        proc 0 creates staging  ->  barrier  ->  all write shards
+        ->  barrier  ->  proc 0 writes meta+marker, renames  ->  barrier
+    """
+    os.makedirs(directory, exist_ok=True)
+    final = _step_dir(directory, step)
+    if process_count <= 1:
+        tmp = os.path.join(directory, f"tmp.{step}.{process_index}")
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        _write_shard(tmp, process_index, state)
+        _commit(directory, tmp, final, step, meta, process_count=1)
+        _gc(directory, keep, process_index=process_index)
+        return final
+    if barrier is None:
+        raise ValueError(
+            "multi-process save_checkpoint needs a barrier callable "
+            "(e.g. the engine's barrier) to order the shared commit"
+        )
+    tmp = os.path.join(directory, f"tmp.{step}.shared")
+    if process_index == 0:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    barrier(f"ckpt-stage-{step}")
+    _write_shard(tmp, process_index, state)
+    barrier(f"ckpt-shards-{step}")
+    if process_index == 0:
+        _commit(directory, tmp, final, step, meta, process_count=process_count)
+        _gc(directory, keep, process_index=0, shared=True)
+    # nobody returns (and possibly starts the next checkpoint, or restores)
+    # until the commit is visible everywhere
+    barrier(f"ckpt-commit-{step}")
     return final
 
 
-def _gc(directory: str, keep: int) -> None:
+def _gc(directory: str, keep: int, *, process_index: int = 0,
+        shared: bool = False) -> None:
     steps = sorted(_committed_steps(directory))
     for s in steps[:-keep] if keep > 0 else []:
         shutil.rmtree(_step_dir(directory, s), ignore_errors=True)
-    # stale staging dirs of this process's crashed writes, older than the
-    # newest commit (a newer one may be a writer still mid-commit)
+    # stale staging dirs of this process's own crashed writes (process 0 of
+    # a shared commit also owns ``tmp.<step>.shared``), older than the
+    # newest commit: a newer one may be a writer still mid-commit
     newest = steps[-1] if steps else None
     for name in os.listdir(directory):
         parts = name.split(".")
-        if len(parts) != 3 or parts[0] != "tmp" or parts[2] != "0":
+        owned = {str(process_index), "shared"} if shared else {str(process_index)}
+        if len(parts) != 3 or parts[0] != "tmp" or parts[2] not in owned:
             continue
         try:
             tmp_step = int(parts[1])
@@ -190,14 +246,16 @@ def read_meta(
         return step, json.load(f)
 
 
-def verify_payload(directory: str, step: int) -> Optional[str]:
-    """None when the shard of a committed step matches the SHA-256 recorded
-    at commit time (or the checkpoint has none), else what is wrong."""
+def verify_payload(directory: str, step: int, *, process_index: int = 0) -> Optional[str]:
+    """None when this process's shard of a committed step matches the
+    SHA-256 recorded at commit time (or the checkpoint has none), else what
+    is wrong."""
     _, meta = read_meta(directory, step=step)
-    recorded = (meta.get("checksums") or {}).get("arrays.0.npz")
+    name = f"arrays.{process_index}.npz"
+    recorded = (meta.get("checksums") or {}).get(name)
     if recorded is None:
         return None
-    target = os.path.join(_step_dir(directory, step), "arrays.0.npz")
+    target = os.path.join(_step_dir(directory, step), name)
     try:
         actual = _sha256_file(target)
     except OSError as exc:
@@ -213,11 +271,19 @@ def restore_checkpoint(
     template: Tree,
     *,
     step: Optional[int] = None,
+    process_index: int = 0,
+    expect_process_count: Optional[int] = 1,
 ) -> Tuple[int, Tree, Dict[str, Any]]:
-    """Restore the newest (or given) committed step into ``template``'s
-    structure.  A shard whose checksum does not match is skipped with a
-    warning for the previous committed step; only when every candidate is
-    corrupt does it raise.  Use the *returned* step and meta."""
+    """Restore this process's shard of the newest (or given) committed step
+    into ``template``'s structure.  A shard whose checksum does not match is
+    skipped with a warning for the previous committed step; only when every
+    candidate is corrupt does it raise.  Use the *returned* step and meta.
+
+    ``expect_process_count`` checks the writers' world size before any
+    array loads: a checkpoint of N processes holds N shards with their
+    process-local residuals, which another world size would mis-restore
+    (``None`` skips the check; restoring across world sizes is elastic
+    work, not ported)."""
     committed = sorted(_committed_steps(directory), reverse=True)
     if step is not None:
         candidates = [s for s in committed if s <= step]
@@ -229,7 +295,7 @@ def restore_checkpoint(
         raise FileNotFoundError(f"no committed checkpoint in {directory}")
     corrupt: List[str] = []
     for s in candidates:
-        problem = verify_payload(directory, s)
+        problem = verify_payload(directory, s, process_index=process_index)
         if problem is not None:
             warnings.warn(f"{problem}; falling back to the previous committed step",
                           RuntimeWarning)
@@ -237,13 +303,16 @@ def restore_checkpoint(
             corrupt.append(problem)
             continue
         _, meta = read_meta(directory, step=s)
-        if int(meta.get("process_count", 1)) != 1:
+        ckpt_procs = int(meta.get("process_count", 1))
+        if expect_process_count is not None and ckpt_procs != expect_process_count:
             raise ValueError(
                 f"checkpoint step {s} in {directory} was written by "
-                f"{meta['process_count']} processes; the port restores "
-                "single-process checkpoints only"
+                f"{ckpt_procs} process(es) but this reader expects "
+                f"{expect_process_count}; restoring across host counts is an "
+                "elastic rescale, which the port does not do"
             )
-        with np.load(os.path.join(_step_dir(directory, s), "arrays.0.npz")) as z:
+        with np.load(os.path.join(_step_dir(directory, s),
+                                  f"arrays.{process_index}.npz")) as z:
             flat = {k: z[k] for k in z.files}
         return s, _unflatten(template, flat), meta
     raise RuntimeError(

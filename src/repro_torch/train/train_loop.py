@@ -1,24 +1,32 @@
-"""Trainer: the epoch loop over the sequential engine, with checkpoints.
+"""Trainer: the epoch loop over an execution engine, with checkpoints.
 
 Port of the JAX package's ``train/train_loop.py`` at a fixed rank count:
-the balanced sampler (Algorithm 1 per epoch) or the fixed-count baseline,
-numpy collation driven through ``data.prefetch.PrefetchPipeline``
+the balanced sampler (Algorithm 1 per epoch; the two-level
+``HierarchicalBalancedSampler`` when ``n_nodes`` is set) or the fixed-count
+baseline, numpy collation driven through ``data.prefetch.PrefetchPipeline``
 (``TrainerConfig.prefetch`` sets the lookahead; 0 runs the same path
-inline), the sequential engine (weighted loss with forces, rank-mean
-gradients, clip + AdamW), EMA, periodic atomic checkpoints and resume
-(params, optimizer state, EMA and the sampler cursor).
+inline), an engine from ``train.engine.make_engine`` (``sequential``, the
+one-process oracle over R logical ranks, or ``data_parallel`` /
+``multihost``, one process per rank on ``torch.distributed``: weighted
+loss with forces, the gradients' mean over the ranks, plain or int8 with
+error feedback, clip + AdamW), EMA, periodic atomic checkpoints (one shard
+per process, committed together) and resume (parameters, optimizer state,
+EMA, error-feedback residuals and the sampler cursor).
 ``simulate_failure_at`` lets a test kill the loop mid-epoch to prove that a
 restart equals an uninterrupted run.
 
 The trainer runs on the CUDA card unless it is given ``device="cpu"``,
 where every kernel wrapper takes its plain PyTorch version.  The initial
 parameters may be passed in (a test hands it the JAX package's, bridged);
-otherwise they are drawn from ``seed`` with a ``torch.Generator``, which
-cannot reproduce the JAX package's ``jax.random`` draws.
+otherwise they are drawn from ``seed`` with a CPU ``torch.Generator``, the
+same in every rank process, which cannot reproduce the JAX package's
+``jax.random`` draws.  A distributed engine needs the process group up
+(``launch.multihost.initialize_distributed``) before the trainer is built;
+the process index and count come from the engine.
 
-Not ported: elastic rescale, ``ElasticTrainer``, the heartbeat, the step
-watchdog, the fault plan, the shard_map and multi-host engines, gradient
-compression, and the autotuned ``"auto"`` impls.
+Not ported: elastic rescale (``rescale``, ``ElasticTrainer``, restore
+across rank or process counts), remat, the heartbeat, the step watchdog,
+the fault plan and the autotuned ``"auto"`` impls.
 
 ``TrainerConfig.impl``, ``interaction_impl``, ``interaction_bwd_impl`` and
 ``precision``, when set, override the model config's fields of those names
@@ -34,15 +42,20 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.bridge import params_to, resolve_device
+from repro_torch.bridge import resolve_device
 from repro_torch.core.mace import MaceConfig, init_mace
 from repro_torch.data.collate import BinShape
 from repro_torch.data.molecules import SyntheticCFMDataset
 from repro_torch.data.prefetch import PrefetchPipeline
-from repro_torch.data.sampler import BalancedBatchSampler, FixedCountSampler, SamplerState
+from repro_torch.data.sampler import (
+    BalancedBatchSampler,
+    FixedCountSampler,
+    HierarchicalBalancedSampler,
+    SamplerState,
+)
 
 from .checkpoint import latest_step, read_meta, restore_checkpoint, save_checkpoint
-from .engine import SequentialEngine
+from .engine import make_engine
 from .optimizer import EMA, adamw, chain, clip_by_global_norm
 
 
@@ -58,6 +71,13 @@ class TrainerConfig:
     ema_decay: float = 0.99
     energy_weight: float = 1.0
     forces_weight: float = 100.0
+    compress_grads: bool = False     # int8 + error-feedback gradient all-reduce
+    engine: str = "sequential"       # "sequential" | "data_parallel" | "multihost"
+    # pod topology: n_nodes x (n_ranks // n_nodes) ranks, node-major.  Set ->
+    # two-level Algorithm-1 packing and the hierarchical reduction (the
+    # intra-node mean, int8 error feedback across nodes only).  None keeps
+    # the flat layout.
+    n_nodes: Optional[int] = None
     prefetch: int = 0                # async collate lookahead depth (0 = inline)
     # edge blocking tile shape (data.blocking); block_n must match
     # MaceConfig.interaction_block_n
@@ -73,6 +93,7 @@ class TrainerConfig:
     precision: Optional[str] = None
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 50
+    log_every: int = 10              # the training entry point's loss lines
 
 
 class Trainer:
@@ -99,7 +120,14 @@ class Trainer:
             tcfg.capacity, tcfg.edge_factor, tcfg.max_graphs,
             block_n=tcfg.block_n, block_e=tcfg.block_e,
         )
-        if sampler == "balanced":
+        if sampler == "balanced" and tcfg.n_nodes:
+            if tcfg.n_ranks % tcfg.n_nodes:
+                raise ValueError(
+                    f"n_ranks={tcfg.n_ranks} not divisible by n_nodes={tcfg.n_nodes}")
+            self.sampler = HierarchicalBalancedSampler(
+                dataset.sizes, tcfg.capacity, tcfg.n_nodes,
+                tcfg.n_ranks // tcfg.n_nodes, seed=seed)
+        elif sampler == "balanced":
             self.sampler = BalancedBatchSampler(
                 dataset.sizes, tcfg.capacity, tcfg.n_ranks, seed=seed)
         elif sampler == "fixed":
@@ -115,15 +143,17 @@ class Trainer:
             adamw(tcfg.lr, weight_decay=tcfg.weight_decay),
         )
         self.ema = EMA(tcfg.ema_decay)
+        self.engine = make_engine(tcfg.engine, mace_cfg, tcfg, self.optimizer,
+                                  tcfg.max_graphs, self.device)
         if params is None:
             params = init_mace(mace_cfg, torch.Generator().manual_seed(seed))
-        self.params = params_to(params, self.device)
+        self.params = self.engine.place_replicated(params)
         self.opt_state = self.optimizer.init(self.params)
         self.ema_params = self.ema.init(self.params)
+        # the compressed all-reduce's residuals (empty when it is off)
+        self.ef_state = self.engine.init_ef(self.params)
         self.global_step = 0
         self.sampler_state = SamplerState(epoch=0, cursor=0)
-        self.engine = SequentialEngine(mace_cfg, tcfg, self.optimizer,
-                                       tcfg.max_graphs, self.device)
         # one static tile geometry shared by the data pipeline and the kernel
         if self.engine.with_blocking and (
             self.bin_shape.block_n != mace_cfg.interaction_block_n
@@ -137,11 +167,19 @@ class Trainer:
     def telemetry(self):
         return self.engine.telemetry
 
+    @property
+    def _process_index(self) -> int:
+        return getattr(self.engine, "process_index", 0)
+
+    @property
+    def _process_count(self) -> int:
+        return getattr(self.engine, "process_count", 1)
+
     # -------------------------- checkpoints --------------------------------
 
     def _state(self):
         return {"params": self.params, "opt_state": self.opt_state,
-                "ema": self.ema_params}
+                "ema": self.ema_params, "ef": self.ef_state}
 
     def save(self):
         if not self.tcfg.ckpt_dir:
@@ -150,6 +188,9 @@ class Trainer:
             self.tcfg.ckpt_dir, self.global_step, self._state(),
             meta={"sampler": self.sampler_state.to_dict(),
                   "n_ranks": self.engine.n_ranks, "lineage": []},
+            process_index=self._process_index,
+            process_count=self._process_count,
+            barrier=getattr(self.engine, "barrier", None),
         )
 
     def maybe_restore(self) -> bool:
@@ -158,18 +199,30 @@ class Trainer:
             return False
         _, meta = read_meta(d)
         ckpt_ranks = int(meta.get("n_ranks", self.engine.n_ranks))
+        ckpt_procs = int(meta.get("process_count", 1))
         if ckpt_ranks != self.engine.n_ranks or meta.get("lineage"):
             raise ValueError(
                 f"checkpoint in {d} was written at n_ranks={ckpt_ranks} (or "
-                f"mid-rescale); this trainer runs n_ranks={self.engine.n_ranks} "
-                "and the port does not rescale"
+                f"mid-rescale) but this trainer runs n_ranks={self.engine.n_ranks}; "
+                "restoring across rank counts is an elastic rescale, which the "
+                "port does not do"
+            )
+        if ckpt_procs != self._process_count:
+            raise ValueError(
+                f"checkpoint in {d} was written by {ckpt_procs} process(es) "
+                f"but this trainer runs {self._process_count}; restoring "
+                "across host counts is an elastic rescale, which the port "
+                "does not do"
             )
         # restore may fall back to an older committed step (checksum
         # mismatch): track the step and meta it returns
-        step, state, meta = restore_checkpoint(d, self._state())
+        step, state, meta = restore_checkpoint(
+            d, self._state(), process_index=self._process_index,
+            expect_process_count=self._process_count)
         self.params = state["params"]
         self.opt_state = state["opt_state"]
         self.ema_params = state["ema"]
+        self.ef_state = state["ef"]
         self.global_step = step
         self.sampler_state = SamplerState.from_dict(meta["sampler"])
         return True
@@ -178,8 +231,12 @@ class Trainer:
 
     def _fetch_batch(self, rank_bins):
         """Host side of one step, on the prefetch producer thread:
-        materialise the molecules and collate them to numpy."""
-        mols_per_rank = [[self.dataset.get(i) for i in b] for b in rank_bins]
+        materialise the molecules of this process's ranks
+        (``engine.local_rank_range``; the others get an empty placeholder)
+        and collate them to numpy."""
+        local = self.engine.local_rank_range
+        mols_per_rank = [[self.dataset.get(i) for i in b] if r in local else []
+                         for r, b in enumerate(rank_bins)]
         return self.engine.collate(mols_per_rank, self.bin_shape)
 
     def run_epoch(
@@ -207,8 +264,9 @@ class Trainer:
             for item in pipeline:
                 host_batches, host_stats = item.batch
                 batches = self.engine.to_device(host_batches)
-                self.params, self.opt_state, metrics = self.engine.step(
-                    self.params, self.opt_state, batches, self.global_step)
+                self.params, self.opt_state, self.ef_state, metrics = self.engine.step(
+                    self.params, self.opt_state, self.ef_state, batches,
+                    self.global_step)
                 self.ema_params = self.ema.update(
                     self.ema_params, self.params, self.global_step)
                 self.global_step += 1

@@ -36,7 +36,11 @@ def test_port_modules_import_no_jax_and_no_repro():
             "repro_torch.data", "repro_torch.data.sampler", "repro_torch.data.prefetch",
             "repro_torch.train", "repro_torch.train.optimizer",
             "repro_torch.train.checkpoint", "repro_torch.train.engine",
-            "repro_torch.train.train_loop", "repro_torch.launch.train_mace_cfm"]
+            "repro_torch.train.train_loop", "repro_torch.train.compression",
+            "repro_torch.launch.mesh", "repro_torch.launch.multihost",
+            "repro_torch.launch.train", "repro_torch.launch.pack_and_balance",
+            "repro_torch.launch.bench_distribution", "repro_torch.launch.train_mace_cfm",
+            "repro_torch.launch.grad_determinism"]
     proc = _run("".join(f"import {m}\n" for m in mods) + _FORBIDDEN_CHECK)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

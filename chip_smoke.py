@@ -33,9 +33,20 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    TP-only op ``tp_cuda`` launches them (the identity blocking, a tile per
    128 edges), fp32, on the bin's 147,456 padded edges;
 3. start a full-width ``GraphServer`` (the paper's §5.2 widths, random
-   weights from a seed, buckets of 64 and 256 atoms, 2 workers) and serve
-   48 molecules of a skewed mix; every kernel's launch count over that run
-   must be above zero;
+   weights from a seed, buckets of 64 and 256 atoms, 2 workers; each
+   bucket captured as one CUDA graph at warm-up) and serve 48 molecules of
+   a skewed mix; the census is one graph per bucket after the warm-up and
+   after the mix, and every kernel's launch count over that run (made by
+   replays) must be above zero; then, per bucket, one replay on a real bin
+   against the eager ``mace_energy_forces`` on the same batch (within the
+   kernel tolerance), each kernel's launches per bin through the replay
+   equal to the eager call's, both timed per bin (CUDA events and wall
+   time), each bucket's graph pool, and the memory a closed engine
+   returns; then the serving entry point ``python -m
+   repro_torch.launch.serve_mace --config paper`` as a child process,
+   with ``--kill-worker`` and with ``REPRO_FAULT_PLAN`` arming a worker
+   fault: each exits 0, serves every request through a drain-and-rebuild,
+   and ends with one graph per bucket;
 4. train at the paper's width: ``Trainer`` with the balanced sampler at
    capacity 3,072 (``edge_factor`` 48) over ``SyntheticCFMDataset(2000,
    seed=0, max_atoms=256)``, one rank, prefetch 1, random weights from the
@@ -55,8 +66,10 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    not equal, 2/4/2/4 launches per bin on the bf16 libraries); 3 fp32 steps
    with the interaction's fused backward against 3 with its kernel
    backward, at capacity 1,024 (losses within 5e-4);
-6. measure under ``torch.profiler``: serve the molecules once more for the
-   card's busy and idle share; time each kernel's own device time per
+6. measure under ``torch.profiler``: serve the molecules once more,
+   through the graphs, for the card's busy and idle share and each
+   kernel's launches recorded beside those made (a reading from under 90%
+   of them is taken again, and then fails); time each kernel's own device time per
    launch on phase 2's inputs (``device_ms``), with its share of its bound
    per layer, and at 3,072 atoms with the L2 cache flushed before each
    launch; profile one more training step (device-op breakdown, idle
@@ -105,6 +118,7 @@ import dataclasses
 import inspect
 import itertools
 import json
+import os
 import random
 import re
 import shutil
@@ -138,7 +152,9 @@ from repro_torch.serve import (  # noqa: E402
     GraphServer,
     ServeConfig,
     ServeEngine,
+    bucket_key,
     bucket_ladder,
+    make_serve_engine,
     select_bucket,
 )
 from repro_torch.train.checkpoint import flatten_state  # noqa: E402
@@ -656,17 +672,28 @@ def skewed_requests():
     return mols
 
 
+def _check_census(server, when):
+    """The JAX serve contract: one captured graph per bucket."""
+    census = server.stats()["compile_census"]
+    print(f"census {when}: {census}", flush=True)
+    if census != {bucket_key(b): 1 for b in server.buckets}:
+        raise AssertionError(f"the census {when} is {census}, not one graph per bucket")
+
+
 def serve(params, mols, config=None):
-    """Serve ``mols`` through a ``GraphServer`` of ``config``, with the
-    launches of the run, every one of them on ``config.precision``'s
-    libraries."""
+    """Serve ``mols`` through a ``GraphServer`` of ``config`` (one CUDA
+    graph per bucket, captured at warm-up: the census is 1 per bucket after
+    warm-up and after the mix), with the launches of the run, every one of
+    them on ``config.precision``'s libraries."""
     config = config or CONFIG
     cfg = ServeConfig(capacities=CAPACITIES, edge_factor=EDGE_FACTOR,
                       n_workers=2, max_wait_s=0.01)
     t0 = time.perf_counter()
     server = GraphServer(config, params, cfg)  # device None: the CUDA card
     print(f"server warm in {time.perf_counter() - t0:.2f}s "
-          f"(buckets {[b.max_nodes for b in server.buckets]})", flush=True)
+          f"(buckets {[b.max_nodes for b in server.buckets]}; graph pool bytes "
+          f"{server.engine.pool_bytes()})", flush=True)
+    _check_census(server, f"after warm-up at {config.precision}")
     _reset_launches()
     futures = []
     for m in mols:
@@ -680,12 +707,146 @@ def serve(params, mols, config=None):
                              f"{_launches(config.precision)} of its {launches} launches "
                              "on its own libraries")
     stats = server.stats()
+    _check_census(server, f"after the mix at {config.precision}")
     server.close()
     for m, r in zip(mols, results):
         assert np.isfinite(r.energy), "non-finite energy"
         assert r.forces.shape == (m.n_atoms, 3) and np.isfinite(r.forces).all()
     assert stats["served"] == len(mols) and stats["failed"] == 0, stats
     return results, stats, launches, server.buckets
+
+
+def _bin_for(bucket, mols):
+    """As many of ``mols`` as fit ``bucket``, in order."""
+    picked, n, e = [], 0, 0
+    for m in mols:
+        if (n + m.n_atoms <= bucket.max_nodes and e + m.n_edges <= bucket.max_edges
+                and len(picked) < bucket.max_graphs):
+            picked.append(m)
+            n, e = n + m.n_atoms, e + m.n_edges
+    return picked
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Mean host milliseconds per call, each call waited for, after a
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def check_graphs(params, mols, buckets):
+    """Each bucket's captured graph against the eager ``mace_energy_forces``
+    on one real bin of the served molecules: the replay within
+    ``KERNEL_TOL`` of the largest magnitude, each kernel launched as often
+    per bin through a replay as by the eager call, both timed per bin (CUDA
+    events over back-to-back calls, and wall time with each call waited
+    for), and each bucket's graph pool; then the engine closed and its
+    memory returned.  Returns {bucket: row}."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    engine = make_serve_engine(CONFIG, params, buckets)
+    census, pools = engine.compile_census(), engine.pool_bytes()
+    if census != {bucket_key(b): 1 for b in buckets}:
+        raise AssertionError(f"the engine's census after warm-up is {census}")
+    rows = {}
+    for bucket in buckets:
+        picked = _bin_for(bucket, sorted(mols, key=lambda m: -m.n_atoms))
+        batch, _ = engine.collate(picked, bucket)
+        G = bucket.max_graphs
+
+        def eager():
+            return mace_energy_forces(engine.params, CONFIG, batch, G)
+
+        def replay():
+            return engine.forward(batch, bucket)
+
+        _reset_launches()
+        want = eager()
+        torch.cuda.synchronize()
+        eager_launches = _launches()
+        _reset_launches()
+        got = tuple(t.clone() for t in replay())
+        torch.cuda.synchronize()
+        replay_launches = _launches()
+        err, scale, ok = _compare(got, want)
+        row = dict(graphs=len(picked), atoms=sum(m.n_atoms for m in picked),
+                   max_abs_err=err, eager_launches=eager_launches,
+                   replay_launches=replay_launches,
+                   eager_event_ms=_time_ms(eager, reps=10),
+                   replay_event_ms=_time_ms(replay, reps=10),
+                   eager_wall_ms=_wall_ms(eager, reps=10),
+                   replay_wall_ms=_wall_ms(replay, reps=10),
+                   pool_bytes=pools[bucket_key(bucket)])
+        print(f"graph {bucket_key(bucket)}: {row['graphs']} graphs, {row['atoms']} atoms: "
+              f"replay against eager max_abs_err={err:.3e} "
+              f"(tol {KERNEL_TOL:g}*max(1,{scale:.3g})) ok={ok}; launches per bin "
+              f"eager={eager_launches} replay={replay_launches}; per-bin ms eager "
+              f"{row['eager_event_ms']:.3f} (events) {row['eager_wall_ms']:.3f} (wall), "
+              f"replay {row['replay_event_ms']:.3f} (events) {row['replay_wall_ms']:.3f} "
+              f"(wall); graph pool {row['pool_bytes'] / 2**20:.1f} MiB", flush=True)
+        if not ok:
+            raise AssertionError(f"the graph of {bucket_key(bucket)} disagrees with the "
+                                 "eager forward")
+        if replay_launches != eager_launches or any(n <= 0 for n in eager_launches.values()):
+            raise AssertionError(f"a replay of {bucket_key(bucket)} launched "
+                                 f"{replay_launches}, the eager call {eager_launches}")
+        rows[bucket_key(bucket)] = row
+    if engine.compile_census() != census:
+        raise AssertionError(f"the census moved to {engine.compile_census()}")
+    held = torch.cuda.memory_reserved()
+    engine.close()
+    freed = held - torch.cuda.memory_reserved()
+    print(f"graph engine closed: {freed / 2**20:.1f} MiB of device memory returned "
+          f"(pools {sum(pools.values()) / 2**20:.1f} MiB)", flush=True)
+    if freed < sum(pools.values()):
+        raise AssertionError("closing the engine did not return its graph pools")
+    return rows
+
+
+SERVE_DRILLS = {
+    "kill_worker": (["--kill-worker"], {}),
+    "fault_plan": ([], {"REPRO_FAULT_PLAN": json.dumps({"serve_worker_fault": {}})}),
+}
+SERVE_DRILL_TIMEOUT_S = 600
+
+
+def serve_drills():
+    """``python -m repro_torch.launch.serve_mace --config paper`` as a child
+    process, with ``--kill-worker`` and then with ``REPRO_FAULT_PLAN``: each
+    exits 0 with every request served, after a drain-and-rebuild, with one
+    graph per bucket in the rebuilt engine.  Returns {drill: its summary}."""
+    root = Path(__file__).resolve().parent
+    out = {}
+    for name, (flags, env) in SERVE_DRILLS.items():
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve_mace", "--config", "paper",
+               *flags]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            cmd, cwd=root, capture_output=True, text=True, timeout=SERVE_DRILL_TIMEOUT_S,
+            env=dict(os.environ, PYTHONPATH=str(root / "src"), **env))
+        seconds = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            print(f"drill {name}: {line}")
+        summary = next((json.loads(line[len("summary "):])
+                        for line in proc.stdout.splitlines() if line.startswith("summary ")),
+                       None)
+        if proc.returncode != 0 or summary is None:
+            raise AssertionError(f"drill {name} exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        census = summary["compile_census"]
+        if (summary["served"] != summary["requests"] or summary["failed"]
+                or summary["rebuilds"] < 1 or not census
+                or any(v != 1 for v in census.values())):
+            raise AssertionError(f"drill {name}: {summary}")
+        print(f"drill {name}: exit 0 in {seconds:.1f}s, {summary['served']} served, "
+              f"{summary['rebuilds']} rebuild(s), census {census}", flush=True)
+        out[name] = dict(summary, seconds=seconds)
+    return out
 
 
 def _device_us(evt) -> float:
@@ -704,37 +865,54 @@ def _kernel_events(prof):
 
 
 def profile_serving(params, mols):
-    """Serve the same requests again under ``torch.profiler``: the share of
-    the wall time the card is busy, and on which operations."""
+    """Serve the same requests again, through the graphs, under
+    ``torch.profiler``: the share of the wall time the card is busy, on
+    which operations, and each kernel's launches recorded by the profiler
+    beside those made (counted through the replays).  A reading that
+    records fewer than ``MIN_RECORDED`` of any kernel's launches is taken
+    again, twice at most, and then fails.  Returns {kernel: (recorded,
+    made)}."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = ServeConfig(capacities=CAPACITIES, edge_factor=EDGE_FACTOR,
                       n_workers=2, max_wait_s=0.01)
     server = GraphServer(CONFIG, params, cfg)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        futures = [server.submit(m, timeout=60.0) for m in mols]
-        for f in futures:
-            f.result(timeout=600.0)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    bins = sum(server.stats()["bucket_bins"].values())
-    server.close()
-    events = _kernel_events(prof)
-    busy_ms = sum(_device_us(e) for e in events) / 1e3
-    if busy_ms == 0:
-        print("profile: device time not measured (the profiler saw no device time)")
-        return
-    top = sorted(events, key=_device_us, reverse=True)[:8]
-    print(f"profile: {len(mols)} graphs in {bins} bins, wall_ms={wall_ms:.1f} "
-          f"device_busy_ms={busy_ms:.1f} device_idle_share={1 - busy_ms / wall_ms:.3f} "
-          f"device_ops={sum(e.count for e in events)}", flush=True)
-    for e in top:
-        print(f"profile top: {_device_us(e) / 1e3:9.3f} ms x{e.count:<5d} {e.key[:90]}")
-    for name, spec in KERNELS.items():
-        mine = [e for e in events if spec["symbol"] in e.key]
-        print(f"profile kernel {name}: {sum(map(_device_us, mine)) / 1e3:.3f} ms "
-              f"x{sum(e.count for e in mine)}")
+    try:
+        for _ in range(3):
+            bins_before = sum(server.stats()["bucket_bins"].values())
+            _reset_launches()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                futures = [server.submit(m, timeout=60.0) for m in mols]
+                for f in futures:
+                    f.result(timeout=600.0)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            made = _launches()
+            bins = sum(server.stats()["bucket_bins"].values()) - bins_before
+            events = _kernel_events(prof)
+            busy_ms = sum(_device_us(e) for e in events) / 1e3
+            print(f"profile: {len(mols)} graphs in {bins} bins, wall_ms={wall_ms:.1f} "
+                  f"device_busy_ms={busy_ms:.1f} "
+                  f"device_idle_share={1 - busy_ms / wall_ms:.3f} "
+                  f"device_ops={sum(e.count for e in events)}", flush=True)
+            for e in sorted(events, key=_device_us, reverse=True)[:8]:
+                print(f"profile top: {_device_us(e) / 1e3:9.3f} ms x{e.count:<5d} "
+                      f"{e.key[:90]}")
+            counts = {}
+            for name, spec in KERNELS.items():
+                mine = [e for e in events if spec["symbol"] in e.key]
+                counts[name] = (sum(e.count for e in mine), made[name])
+                print(f"profile kernel {name}: {sum(map(_device_us, mine)) / 1e3:.3f} ms "
+                      f"launches_recorded={counts[name][0]}/{made[name]}", flush=True)
+            if all(seen >= MIN_RECORDED * n and n > 0 for seen, n in counts.values()):
+                return counts
+            print("profile: the profiler recorded too few launches; measuring again",
+                  flush=True)
+        raise AssertionError(f"the serving profile recorded launches {counts} "
+                             "(recorded, made)")
+    finally:
+        server.close()
 
 
 def compare_with_cpu(params, mols, results, buckets):
@@ -898,12 +1076,8 @@ def check_paths_and_impls(dev, params, mols, bucket):
     ``ref`` impls (every kind) against ``cuda``, all at fp32, within the
     kernel tolerance of the largest magnitude.  Returns the unblocked run's
     launches."""
-    picked, n, e = [], 0, 0
-    for m in mols:
-        if (n + m.n_atoms <= bucket.max_nodes and e + m.n_edges <= bucket.max_edges
-                and len(picked) < bucket.max_graphs):
-            picked.append(m)
-            n, e = n + m.n_atoms, e + m.n_edges
+    picked = _bin_for(bucket, mols)
+    n, e = sum(m.n_atoms for m in picked), sum(m.n_edges for m in picked)
     dev_params = params_to(params, dev)
     batches = {blocked: {k: torch.from_numpy(v).to(dev) for k, v in collate_bin(
         picked, bucket, strict=True, with_blocking=blocked).items()}
@@ -1487,9 +1661,11 @@ def kernel_units():
 
 def kernel_entries(results, training, identity, launches, train, train_profile,
                    variant_launches, bf16_training_launches, identity_launches,
-                   dp_launches):
+                   dp_launches, serving_profile, graph_rows):
     """The ``kernels`` JSON line: each kernel at fp32 (the serving run's
-    launches, with its training-step numbers and the data-parallel runs'
+    launches, all of them through graph replays, with its launches per
+    replay of each bucket's graph, the serving profile's launches recorded
+    and made, its training-step numbers and the data-parallel runs'
     launches summed over their ranks), at bf16 and fp8 (the launches of the
     serving run at that precision; bf16 also the variant training run's),
     and the identity-blocked interaction kernels (the unblocked bin's
@@ -1521,7 +1697,11 @@ def kernel_entries(results, training, identity, launches, train, train_profile,
                     training_device_ms_per_step=train_profile[name]["device_ms"],
                     training_device_launches_recorded=train_profile[name]["recorded"],
                     training_device_launches_made=train_profile[name]["made"],
-                    data_parallel_launches={run: n[name] for run, n in dp_launches.items()})
+                    data_parallel_launches={run: n[name] for run, n in dp_launches.items()},
+                    replay_launches_per_bin={b: r["replay_launches"][name]
+                                             for b, r in graph_rows.items()},
+                    serving_device_launches_recorded=serving_profile[name][0],
+                    serving_device_launches_made=serving_profile[name][1])
             elif p == "bf16":
                 entry.update(training_launches=bf16_training_launches[name])
             entries.append(entry)
@@ -1556,7 +1736,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}; card: {card}", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     units = kernel_units()
     cuda_lib.build([unit for _, unit in units])
     print(f"{len(units)} kernel libraries built in {time.perf_counter() - t0:.1f}s", flush=True)
@@ -1585,12 +1765,14 @@ def main() -> int:
     missing = [name for name, n in launches.items() if n <= 0]
     if missing:
         raise AssertionError(f"the serving run launched no {missing}")
+    graph_rows = check_graphs(params, mols, buckets)
+    serve_drills()
     train = train_steps(tr)
     variant_launches = serve_at_precisions(params, mols, results)
     identity_launches = check_paths_and_impls(dev, params, mols, buckets[-1])
     bf16_training_launches = train_variants(train["history"])
 
-    profile_serving(params, mols)
+    serving_profile = profile_serving(params, mols)
     time_kernels(kernel_results, {**training_results, **identity_results})
     train_profile = profile_train_step(tr, [r["ms"] for r in train["rows"]])
     checkpoint_round_trip(tr)
@@ -1598,11 +1780,12 @@ def main() -> int:
     compare_training_with_cpu()
     dp_launches = data_parallel(card, train["history"][0]["loss"])
 
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernel_entries(
         kernel_results, training_results, identity_results, launches, train,
         train_profile, variant_launches, bf16_training_launches, identity_launches,
-        dp_launches)}))
+        dp_launches, serving_profile, graph_rows)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

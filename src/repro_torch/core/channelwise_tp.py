@@ -83,6 +83,14 @@ def build_tp_tables(spec: TPSpec) -> TPTables:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _real_cg_tensor(l1: int, l2: int, l3: int, dtype, device) -> torch.Tensor:
+    """``real_cg(l1, l2, l3)`` on ``device``, made once per (path, dtype,
+    device), so that ``tp_ref`` copies nothing from the host per call (a
+    CUDA graph cannot capture such a copy)."""
+    return torch.as_tensor(real_cg(l1, l2, l3), dtype=dtype, device=device)
+
+
 def tp_ref(
     Y: torch.Tensor,       # [E, dim_y]
     h_send: torch.Tensor,  # [E, k, dim_h]   (already gathered to edges)
@@ -93,8 +101,7 @@ def tp_ref(
     E, k = h_send.shape[0], h_send.shape[1]
     out = h_send.new_zeros((E, k, spec.out_spec.dim))
     for p, (l1, l2, l3) in enumerate(spec.paths):
-        C = torch.as_tensor(real_cg(l1, l2, l3), dtype=h_send.dtype,
-                            device=h_send.device)
+        C = _real_cg_tensor(l1, l2, l3, h_send.dtype, h_send.device)
         y_p = Y[:, spec.y_spec.slice_for(l1)]
         h_p = h_send[:, :, spec.h_spec.slice_for(l2)]
         r_p = R[:, p, :]

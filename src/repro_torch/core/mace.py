@@ -231,7 +231,10 @@ def mace_energy(
     """Total potential energy per graph: [n_graphs]."""
     N = species.shape[0]
 
-    vec = positions[receivers] - positions[senders]          # [E, 3]
+    # index_select, whose backward is an index_add_ (advanced indexing's is
+    # PyTorch's sort-based indexing backward, most of serving's device time)
+    vec = (positions.index_select(0, receivers)
+           - positions.index_select(0, senders))             # [E, 3]
     lengths = torch.sqrt(torch.sum(vec * vec, dim=-1) + 1e-18)
     Y = spherical_harmonics(cfg.sh_lmax, vec)                # [E, dim_sh]
     radial = radial_embedding(lengths, cfg.r_max, cfg.num_bessel)

@@ -6,6 +6,8 @@ construction as the CG tensors, so model equivariance holds by construction.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -34,9 +36,7 @@ def spherical_harmonics(
 
     blocks = []
     for l in range(lmax + 1):
-        coeffs = torch.as_tensor(
-            np.asarray(real_sh_polys(l)), dtype=vectors.dtype, device=vectors.device
-        )
+        coeffs = _sh_coeffs(l, vectors.dtype, vectors.device)
         monos = torch.stack(
             [
                 _int_pow(x, a) * _int_pow(y, b) * _int_pow(z, c)
@@ -46,6 +46,14 @@ def spherical_harmonics(
         )  # [..., n_mono]
         blocks.append(monos @ coeffs.T)  # [..., 2l+1]
     return torch.cat(blocks, dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sh_coeffs(l: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The order-``l`` coefficient table on ``device``, made once per (l,
+    dtype, device): a copy from the host at every call would make the stream
+    wait on it, and a CUDA graph cannot capture it."""
+    return torch.as_tensor(np.asarray(real_sh_polys(l)), dtype=dtype, device=device)
 
 
 def _int_pow(t: torch.Tensor, p: int) -> torch.Tensor:

@@ -97,9 +97,11 @@ def symcon_ref(
     return out
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class SymConTables:
-    """Sparse U tables per (L, nu)."""
+    """Sparse U tables per (L, nu).  Hashed by identity
+    (``build_symcon_tables`` memoises one per spec), so the device copies of
+    :func:`_fused_tensors` can be cached on it."""
 
     entries: Tuple[Tuple[int, int, np.ndarray, np.ndarray, np.ndarray, np.ndarray], ...]
     # each: (L, nu, idx [nnz, nu], M [nnz], eta [nnz], val [nnz])
@@ -117,6 +119,26 @@ def build_symcon_tables(spec: SymConSpec) -> SymConTables:
     return SymConTables(tuple(entries))
 
 
+@functools.lru_cache(maxsize=None)
+def _fused_tensors(tables: SymConTables, dtype, device):
+    """Per (L, nu) of ``tables``: the product columns [nnz, nu] and the
+    weight columns [nnz] (long), the U values [nnz] and the one-hot [nnz,
+    2L+1] projection onto M, on ``device``, made once per (tables, dtype,
+    device): copies from the host at every call would make the stream wait
+    on them, and a CUDA graph cannot capture them."""
+    out = []
+    for (L, nu, idx, M, eta, val) in tables.entries:
+        scatter = np.zeros((len(M), 2 * L + 1), np.float64)
+        scatter[np.arange(len(M)), M] = 1.0
+        out.append((
+            torch.as_tensor(idx, dtype=torch.long, device=device),
+            torch.as_tensor(eta, dtype=torch.long, device=device),
+            torch.as_tensor(val, dtype=dtype, device=device),
+            torch.as_tensor(scatter, dtype=dtype, device=device),
+        ))
+    return tuple(out)
+
+
 def symcon_fused(
     A: torch.Tensor,            # [N, k, dim_in]
     species: torch.Tensor,      # [N] int
@@ -130,18 +152,13 @@ def symcon_fused(
     Returns B: [N, k, dim_out]."""
     t = tables or build_symcon_tables(spec)
     N, k, _ = A.shape
-    dt, dev = A.dtype, A.device
     out = A.new_zeros((N, k, spec.out_spec.dim))
-    for (L, nu, idx, M, eta, val) in t.entries:
+    for (L, nu, *_), (cols, eta, val, scatter) in zip(
+            t.entries, _fused_tensors(t, A.dtype, A.device)):
         W = weights[f"w_L{L}_nu{nu}"][species]                  # [N, k, n_paths]
-        cols = torch.as_tensor(idx, dtype=torch.long, device=dev)
         prod = A[:, :, cols[:, 0]]
         for x in range(1, nu):
             prod = prod * A[:, :, cols[:, x]]                    # [N, k, nnz]
-        wg = W[:, :, torch.as_tensor(eta, dtype=torch.long, device=dev)]
-        contrib = prod * wg * torch.as_tensor(val, dtype=dt, device=dev)
-        scatter = torch.zeros((len(M), 2 * L + 1), dtype=dt, device=dev)
-        scatter[torch.arange(len(M), device=dev),
-                torch.as_tensor(M, dtype=torch.long, device=dev)] = 1.0
+        contrib = prod * W[:, :, eta] * val
         out[:, :, spec.out_spec.slice_for(L)] += contrib @ scatter
     return out

@@ -15,9 +15,15 @@ Every C entry point takes device pointers, integer sizes and the CUDA
 stream last, launches on that stream, allocates nothing, and returns
 ``cudaGetLastError()``; :class:`CudaKernel` raises when that is nonzero and
 counts the launches it made.
+
+A launch made while a CUDA graph is captured does not run: inside
+:func:`recording_launches` for the capture stream, it goes into the graph's
+tally instead of the counts, and each replay of the graph adds the tally to
+the counts (:func:`count_replay`), since a replay runs no Python.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,7 +31,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +50,9 @@ Unit = Tuple[str, str]
 
 _lock = threading.Lock()
 _libs: Dict[Unit, ctypes.CDLL] = {}
+# capture stream handle -> the tally of the graph being captured on it
+_captures: Dict[int, "LaunchTally"] = {}
+_captures_lock = threading.Lock()
 # compiler output (ptxas register / stack / spill report) of each library,
 # by library name; kept beside the library so one built earlier still has
 # its report
@@ -148,17 +157,63 @@ class CudaKernel:
             self._fns[header] = fn
         return fn
 
+    def add_launches(self, header: str, n: int) -> None:
+        """Count ``n`` launches of the ``header`` build: one per call that
+        ran the kernel, ``n`` per replay of a graph that captured it ``n``
+        times."""
+        with self._count_lock:
+            self.launches += n
+            self.launches_by_header[header] = self.launches_by_header.get(header, 0) + n
+
     def __call__(self, *args, header: str) -> None:
         fn = self._bind(header)
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(
                 f"CUDA kernel {self.symbol} ({self.source}) failed to launch: "
                 f"cudaError_t {err}"
             )
-        with self._count_lock:
-            self.launches += 1
-            self.launches_by_header[header] = self.launches_by_header.get(header, 0) + 1
+        tally = _captures.get(stream)
+        if tally is not None:
+            with _captures_lock:
+                tally[(self, header)] = tally.get((self, header), 0) + 1
+        elif torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"CUDA kernel {self.symbol} was captured into a graph outside "
+                "recording_launches: its replays would go uncounted"
+            )
+        else:
+            self.add_launches(header, 1)
+
+
+# (kernel, header) -> launches captured into one graph
+LaunchTally = Dict[Tuple[CudaKernel, str], int]
+
+
+@contextlib.contextmanager
+def recording_launches(stream: torch.cuda.Stream) -> Iterator[LaunchTally]:
+    """Around the capture of a CUDA graph on ``stream``: the kernels
+    launched on it, from any thread (autograd runs a backward on its own
+    thread, on the stream of the forward), are tallied in the yielded dict
+    instead of counted, since they do not run."""
+    key = stream.cuda_stream
+    tally: LaunchTally = {}
+    with _captures_lock:
+        if key in _captures:
+            raise RuntimeError("a graph is already being captured on this stream")
+        _captures[key] = tally
+    try:
+        yield tally
+    finally:
+        with _captures_lock:
+            del _captures[key]
+
+
+def count_replay(tally: LaunchTally) -> None:
+    """Count one replay of a graph whose capture tallied ``tally``."""
+    for (kernel, header), n in tally.items():
+        kernel.add_launches(header, n)
 
 
 PTR = ctypes.c_void_p

@@ -1,7 +1,8 @@
 """Continuous-batching graph server: queue -> Algorithm-1 packer -> workers.
 
 Port of the JAX package's ``serve/server.py`` onto the torch
-:class:`~repro_torch.serve.engine.ServeEngine`.  The server runs on the CUDA
+:class:`~repro_torch.serve.engine.ServeEngine`, which serves each bucket by
+replaying one CUDA graph over static buffers.  The server runs on the CUDA
 card unless built with ``device="cpu"``; without a card it raises.
 
 Threading layout (all daemon threads, owned by :class:`GraphServer`):
@@ -16,7 +17,10 @@ Threading layout (all daemon threads, owned by :class:`GraphServer`):
   shape (host-side edge blocking included when the kernel consumes it), run
   the bucket's forward, and route per-graph energies/forces back to
   each request's ``Future``.  Collation is numpy and the kernels run
-  asynchronously on the card, so workers overlap host and device work;
+  asynchronously on the card, so workers overlap host and device work.
+  The workers share the engine, whose buckets each own one set of static
+  buffers and outputs: a lock per bucket covers the copy in, the replay and
+  the copy of energies and forces to the host;
 * an optional **watchdog** thread runs :meth:`GraphServer.healthcheck` and
   triggers :meth:`drain_and_rebuild` when a worker has died.
 
@@ -26,7 +30,18 @@ with the underlying error instead of hanging).  ``drain_and_rebuild``
 stops the surviving workers at a bin boundary, re-queues anything still in
 flight, closes the engine, builds a fresh warm engine
 (``make_serve_engine``) and restarts a full fleet — zero requests dropped
-(tests/test_torch_serve.py kills a worker mid-load and proves it).
+(tests/test_torch_serve.py kills a worker mid-load and proves it).  The
+rebuild takes every bucket lock before it closes the old engine, so no
+worker is inside a replay when its graph is released.  A worker that
+outlived the join may still run host work and copies on its own stream
+while the new engine captures; capture runs in ``thread_local`` error mode
+(``serve.engine``), so that cannot invalidate it, and the worker's next
+forward reaches either the closed engine, which raises (its bin is
+requeued), or the new one, under the bucket's lock.
+
+``REPRO_FAULT_PLAN`` (``resilience.faults``) arms the same drill from the
+environment: with a ``serve_worker_fault`` spec, the first bin a worker
+takes after startup raises.
 """
 from __future__ import annotations
 
@@ -44,6 +59,7 @@ import numpy as np
 from repro_torch.core.mace import MaceConfig
 from repro_torch.data.collate import BinShape
 from repro_torch.data.molecules import Molecule
+from repro_torch.resilience.faults import FaultPlan
 
 from .buckets import (
     RequestTooLarge,
@@ -192,6 +208,13 @@ class GraphServer:
         self._inflight: Dict[int, _PackedBin] = {}
         self._fault_inject: set = set()        # worker ids to fail (tests/drills)
         self._timed: Dict[int, _Request] = {}  # requests with a deadline
+        # one lock per bucket around the shared engine's static buffers and
+        # outputs (copy in, replay, copy to the host)
+        self._bucket_locks = {bucket_key(b): threading.Lock() for b in self.buckets}
+        # env-armable chaos (REPRO_FAULT_PLAN serve_worker_fault): the
+        # first bin served after startup raises, same path as
+        # inject_worker_fault but drivable from outside the process
+        self._env_fault_pending = FaultPlan.from_env().serve_worker_fault()
 
         # telemetry
         self._latencies: List[float] = []
@@ -254,7 +277,19 @@ class GraphServer:
         self._batcher = self._watchdog = None
         if not drain:
             self._cancel_pending()
-        self.engine.close()
+        self._close_engine()
+
+    def _close_engine(self) -> None:
+        """Close the engine holding every bucket lock, so that no worker
+        (one that outlived its join included) is inside a replay of a graph
+        that the close releases."""
+        for lock in self._bucket_locks.values():
+            lock.acquire()
+        try:
+            self.engine.close()
+        finally:
+            for lock in self._bucket_locks.values():
+                lock.release()
 
     def _cancel_pending(self) -> None:
         for q in (self._requests, self._bins):
@@ -450,6 +485,13 @@ class GraphServer:
                     raise RuntimeError(
                         f"injected fault in worker {w.wid}"
                     )
+                with self._lock:  # exactly one worker takes the fault
+                    fire, self._env_fault_pending = self._env_fault_pending, False
+                if fire:
+                    raise RuntimeError(
+                        f"injected fault (REPRO_FAULT_PLAN "
+                        f"serve_worker_fault) in worker {w.wid}"
+                    )
                 self._serve_bin(w, item)
                 with self._lock:
                     self._inflight.pop(w.wid, None)
@@ -479,12 +521,14 @@ class GraphServer:
     def _serve_bin(self, w: _Worker, pbin: _PackedBin) -> None:
         t0 = time.perf_counter()
         mols = [r.mol for r in pbin.requests]
-        batch, _ = self.engine.collate(mols, pbin.bucket)
-        energy, forces = self.engine.forward(batch, pbin.bucket)
-        energy = energy.cpu().numpy()
-        forces = forces.cpu().numpy()
-        t_done = time.perf_counter()
+        engine = self.engine
+        batch, _ = engine.collate(mols, pbin.bucket)
         key = bucket_key(pbin.bucket)
+        with self._bucket_locks[key]:
+            energy, forces = engine.forward(batch, pbin.bucket)
+            energy = energy.cpu().numpy()
+            forces = forces.cpu().numpy()
+        t_done = time.perf_counter()
         n_off = 0
         delivered: List[_Request] = []
         for g, r in enumerate(pbin.requests):
@@ -605,9 +649,9 @@ class GraphServer:
         for pbin in stranded:
             self._bins.put(pbin)
         # engine teardown + fresh warm build (a worker death may mean a
-        # poisoned device context; a rebuilt engine warms its bucket set
-        # again and serving resumes)
-        self.engine.close()
+        # poisoned device context; a rebuilt engine warms and captures its
+        # bucket set again and serving resumes)
+        self._close_engine()
         self.engine = make_serve_engine(
             self.mace_cfg, self._params, self.buckets, device=self.device
         )
@@ -668,6 +712,7 @@ class GraphServer:
             "latency_mean_ms": float(lat.mean() * 1e3) if lat.size else 0.0,
             "bucket_bins": bucket_bins,
             "bucket_graphs": bucket_graphs,
+            "compile_census": self.engine.compile_census(),
             "workers": self._healthcheck_rows(),
             "rebuilds": len(self.rebuild_events),
         }

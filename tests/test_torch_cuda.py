@@ -454,3 +454,124 @@ def test_bf16_training_step_launches_on_the_bf16_libraries(dev):
     tag = precision_define("bf16")
     assert [sum(n for h, n in kern.launches_by_header.items() if tag in h)
             for kern in kernels] == [kern.launches for kern in kernels] == [2, 4, 2, 4]
+
+
+# ---------------------------------------------------------------------------
+# serving under CUDA graphs: one graph per bucket
+# ---------------------------------------------------------------------------
+
+SERVE_CAPACITIES = (64, 128)
+
+
+def _serve_setup(impl="cuda"):
+    """The paper's specs at 16 channels, random weights from a seed, the
+    bucket ladder and a skewed set of molecules."""
+    import dataclasses
+
+    from repro_torch.core.mace import init_mace
+    from repro_torch.data.molecules import SyntheticCFMDataset
+    from repro_torch.serve import bucket_ladder
+
+    cfg = dataclasses.replace(CONFIG, channels=16, impl=impl, interaction_impl=impl)
+    params = init_mace(cfg, torch.Generator().manual_seed(0))
+    ladder = bucket_ladder(SERVE_CAPACITIES, edge_factor=48)
+    ds = SyntheticCFMDataset(64, seed=1, max_atoms=max(SERVE_CAPACITIES))
+    by_size = sorted(range(len(ds)), key=lambda i: int(ds.sizes[i]))
+    mols = [ds.get(i) for i in by_size[-4:] + by_size[:12]]
+    return cfg, params, ladder, mols
+
+
+def _bin_for(bucket, mols):
+    """As many of ``mols`` as fit ``bucket``, in order."""
+    picked, n, e = [], 0, 0
+    for m in mols:
+        if (n + m.n_atoms <= bucket.max_nodes and e + m.n_edges <= bucket.max_edges
+                and len(picked) < bucket.max_graphs):
+            picked.append(m)
+            n, e = n + m.n_atoms, e + m.n_edges
+    return picked
+
+
+@pytest.mark.parametrize("impl", ["cuda", "fused", "ref"])
+def test_replay_matches_eager_per_bucket(dev, impl):
+    """Each bucket's graph replayed on a real bin against the eager
+    ``mace_energy_forces`` on the same batch, within the kernel tolerance;
+    every impl captures; through the cuda impl a replay launches each
+    kernel as often as the eager call does."""
+    from repro_torch.core.mace import mace_energy_forces
+    from repro_torch.serve import bucket_key, make_serve_engine
+
+    cfg, params, ladder, mols = _serve_setup(impl)
+    engine = make_serve_engine(cfg, params, ladder, device=dev)
+    try:
+        assert engine.compile_census() == {bucket_key(b): 1 for b in ladder}
+        for bucket in ladder:
+            batch, _ = engine.collate(_bin_for(bucket, mols[::-1]), bucket)
+            before = _kernel_launches()
+            want = mace_energy_forces(engine.params, cfg, batch, bucket.max_graphs)
+            torch.cuda.synchronize()
+            eager = _kernel_launches() - before
+            got = engine.forward(batch, bucket)
+            torch.cuda.synchronize()
+            replay = _kernel_launches() - before - eager
+            _close(got, want)
+            assert replay.tolist() == eager.tolist()
+            assert eager.tolist() == ([2, 2, 2, 2] if impl == "cuda" else [0, 0, 0, 0])
+        assert engine.compile_census() == {bucket_key(b): 1 for b in ladder}
+    finally:
+        engine.close()
+
+
+def test_census_stays_one_per_bucket_through_a_mix_and_a_rebuild(dev):
+    """A mixed load (ragged tails: bins of one small molecule as well as full
+    ones) never recaptures, and the rebuilt engine of a drain-and-rebuild
+    has again one graph per bucket."""
+    from repro_torch.serve import GraphServer, ServeConfig, bucket_key
+
+    cfg, params, _, mols = _serve_setup()
+    server = GraphServer(cfg, params, ServeConfig(
+        capacities=SERVE_CAPACITIES, edge_factor=48, n_workers=2, max_wait_s=0.01),
+        device=dev)
+    try:
+        want = {bucket_key(b): 1 for b in server.buckets}
+        results = [f.result(timeout=300.0) for f in server.submit_many(mols)]
+        results += [server.submit(mols[-1]).result(timeout=300.0)]  # a bin of one
+        assert len(results) == len(mols) + 1
+        assert server.stats()["compile_census"] == want
+        server.drain_and_rebuild()
+        results = [f.result(timeout=300.0) for f in server.submit_many(mols)]
+        stats = server.stats()
+        assert stats["compile_census"] == want and stats["rebuilds"] == 1
+        assert stats["served"] == 2 * len(mols) + 1 and stats["failed"] == 0
+    finally:
+        server.close()
+
+
+def test_replay_refuses_a_batch_of_another_shape(dev):
+    from repro_torch.serve import make_serve_engine
+
+    cfg, params, ladder, mols = _serve_setup()
+    engine = make_serve_engine(cfg, params, ladder, device=dev)
+    try:
+        small, large = ladder
+        batch, _ = engine.collate(_bin_for(small, mols), small)
+        with pytest.raises(ValueError, match="bucket n128.*array 'species'"):
+            engine.forward(batch, large)
+        assert engine.compile_census() == {k: 1 for k in engine.compile_census()}
+    finally:
+        engine.close()
+
+
+def test_closed_engine_releases_its_graphs(dev):
+    from repro_torch.serve import make_serve_engine
+
+    cfg, params, ladder, _ = _serve_setup()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    engine = make_serve_engine(cfg, params, ladder, device=dev)
+    pools = engine.pool_bytes()
+    assert all(n > 0 for n in pools.values()), pools
+    held = torch.cuda.memory_reserved()
+    engine.close()
+    assert engine.compile_census() == {}
+    assert torch.cuda.memory_reserved() <= held - sum(pools.values())

@@ -40,7 +40,8 @@ def test_port_modules_import_no_jax_and_no_repro():
             "repro_torch.launch.mesh", "repro_torch.launch.multihost",
             "repro_torch.launch.train", "repro_torch.launch.pack_and_balance",
             "repro_torch.launch.bench_distribution", "repro_torch.launch.train_mace_cfm",
-            "repro_torch.launch.grad_determinism"]
+            "repro_torch.launch.grad_determinism", "repro_torch.launch.serve_mace",
+            "repro_torch.resilience", "repro_torch.resilience.faults"]
     proc = _run("".join(f"import {m}\n" for m in mods) + _FORBIDDEN_CHECK)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

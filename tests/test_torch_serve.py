@@ -155,3 +155,108 @@ def test_serving_without_cpu_device_needs_cuda():
         ServeEngine(TCFG, params, ladder, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         GraphServer(TCFG, params, ServeConfig(capacities=CAPACITIES))
+
+
+def test_stats_carry_a_census_of_the_ladder_zero_on_the_cpu(served):
+    """``stats()["compile_census"]`` is keyed by exactly the bucket ladder;
+    the CPU engine serves eagerly and captures no graph."""
+    server = served["server"]
+    assert served["stats"]["compile_census"] == {
+        bucket_key(b): 0 for b in server.buckets}
+    assert server.engine.compile_census() == served["stats"]["compile_census"]
+
+
+def _cpu_engine(cfg=TCFG):
+    from repro_torch.serve import make_serve_engine
+
+    params = init_mace(cfg, torch.Generator().manual_seed(0))
+    return make_serve_engine(cfg, params, bucket_ladder(CAPACITIES), device="cpu")
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "missing"])
+def test_batch_outside_the_bucket_raises_and_is_not_served(fault):
+    """A batch whose arrays differ from the bucket's buffers raises a
+    ``ValueError`` naming the bucket and the array, before anything is
+    copied: the buffers keep what they held, and nothing is recaptured."""
+    engine = _cpu_engine()
+    small, large = engine.buckets
+    mols = [SyntheticCFMDataset(8, seed=0, max_atoms=12).get(0)]
+    batch, _ = engine.collate(mols, small)
+    held = {k: v.clone() for k, v in engine._program(small).inputs.items()}
+    if fault == "shape":
+        bucket, name = large, "species"
+    elif fault == "dtype":
+        bucket, name = small, "positions"
+        batch["positions"] = batch["positions"].double()
+    else:
+        bucket, name = small, "graph_id"
+        del batch["graph_id"]
+    with pytest.raises(ValueError, match=f"bucket {bucket_key(bucket)}.*{name}"):
+        engine.forward(batch, bucket)
+    for k, v in engine._program(small).inputs.items():
+        assert torch.equal(v, held[k]), k
+    assert engine.compile_census() == {bucket_key(b): 0 for b in engine.buckets}
+    engine.close()
+
+
+@pytest.mark.parametrize("impl", ["cuda", "fused", "ref"])
+def test_warm_forward_builds_no_tensor_from_the_host(impl, monkeypatch):
+    """After a warm forward, a second forward of each impl makes no
+    ``torch.as_tensor`` / ``torch.tensor`` call on host data: on the card
+    each would be a copy from the host, which a CUDA graph cannot
+    capture."""
+    cfg = MaceConfig(**WIDTHS, impl=impl, interaction_impl=impl)
+    engine = _cpu_engine(cfg)
+    bucket = engine.buckets[-1]
+    ds = SyntheticCFMDataset(8, seed=0, max_atoms=24)
+    batch, _ = engine.collate([ds.get(0), ds.get(1)], bucket)
+    want = [t.clone() for t in engine.forward(batch, bucket)]
+
+    def refuse(name, real):
+        def guarded(data, *args, **kwargs):
+            if not isinstance(data, torch.Tensor):
+                raise AssertionError(f"torch.{name} on {type(data).__name__} "
+                                     "inside a warm forward")
+            return real(data, *args, **kwargs)
+        return guarded
+
+    monkeypatch.setattr(torch, "as_tensor", refuse("as_tensor", torch.as_tensor))
+    monkeypatch.setattr(torch, "tensor", refuse("tensor", torch.tensor))
+    got = engine.forward(batch, bucket)
+    monkeypatch.undo()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    engine.close()
+
+
+def test_fault_plan_env_kills_one_worker_and_the_fleet_rebuilds(monkeypatch):
+    """``REPRO_FAULT_PLAN={"serve_worker_fault": {}}``: the first bin a worker
+    takes raises, that worker dies and requeues it, the heal rebuilds the
+    fleet, and every request resolves."""
+    monkeypatch.setenv("REPRO_FAULT_PLAN", '{"serve_worker_fault": {}}')
+    params = init_mace(TCFG, torch.Generator().manual_seed(0))
+    ds = SyntheticCFMDataset(32, seed=5, max_atoms=24)
+    server = GraphServer(
+        TCFG, params,
+        ServeConfig(capacities=(24,), edge_factor=48, n_workers=2,
+                    max_wait_s=0.005, watchdog_s=0.0),  # heal by hand
+        device="cpu",
+    )
+    try:
+        mols = [ds.get(i) for i in range(12)]
+        futures = [server.submit(m, timeout=30.0) for m in mols]
+        t0 = time.perf_counter()
+        while all(w["alive"] for w in server.healthcheck()):
+            assert time.perf_counter() - t0 < 60.0, "no worker died"
+            time.sleep(0.01)
+        dead = [w for w in server.healthcheck() if not w["alive"]]
+        assert len(dead) == 1 and "REPRO_FAULT_PLAN" in dead[0]["error"]
+        assert server.check_and_heal()
+        results = [f.result(timeout=300.0) for f in futures]
+        assert len(results) == len(mols)
+        stats = server.stats()
+        assert stats["failed"] == 0 and stats["served"] == len(mols)
+        assert stats["rebuilds"] == 1
+        assert all(w["alive"] for w in server.healthcheck())
+    finally:
+        server.close()

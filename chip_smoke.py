@@ -105,10 +105,34 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    straggler ratio beside the token-count proxy of the same bins; then one
    compressed step of a world of one through NCCL against phase 4's first
    loss;
-10. report: the card's name and power limit, one JSON line of kernel
+10. the autotuner (``kernels.autotune``): tune the main paths' shapes at
+   the paper's width (the 64- and 256-atom buckets and the 3,072-atom bin,
+   ``edge_factor`` 48) for at most ``AUTOTUNE_BUDGET_S`` seconds into a
+   temporary trajectory, CUDA-event medians of 5 graph replays per
+   candidate, and
+   print each ``gpu`` decision with its two best measured configs beside
+   the committed table's decision and the card's name and power limit (not
+   held: the run-to-run spread can flip a near tie); ``check_table("gpu")``
+   on the committed table and trajectory must report no problem; then a
+   ``Trainer`` with ``impl="auto"`` and ``interaction_impl="auto"`` at
+   3,072 atoms takes 2 steps, and one naming the impls, tile geometry and
+   backward those resolve to takes the same 2 steps, each in a process of
+   its own under phase 9's deterministic settings: their losses equal,
+   bit for bit, and each step's launches per bin those the resolved names
+   imply (2/4/2/4 when every kind resolves to ``cuda``); and a
+   ``GraphServer`` with ``interaction_impl="auto"`` serves the 48
+   molecules (one graph per bucket, the decisions in ``stats()``, energies
+   and forces within 2e-4 L2-relative of phase 3's); last the tiles
+   ``"auto"`` resolves to are timed against the default 32x128 on the same
+   inputs, in the order default, auto, auto, default: each serving
+   bucket's graph replay on one real bin of the 48 molecules (the two
+   within ``KERNEL_TOL``), and training steps on the same 3,072-atom bins
+   at each geometry the two paths resolve to (not held: a measurement);
+11. report: the card's name and power limit, one JSON line of kernel
    numbers (each kernel at each precision, and the identity-blocked
    interaction kernels; the fp32 entries also carry the data-parallel
-   runs' launches), and last a JSON line with ``"ok": true``.
+   runs' launches and the autotune phase's), and last a JSON line with
+   ``"ok": true``.
 
 Without a CUDA device it exits with code 2 before printing any result.
 """
@@ -138,16 +162,20 @@ from repro_torch.bridge import params_to, unflatten  # noqa: E402
 from repro_torch.configs.mace_cfm import CONFIG  # noqa: E402
 from repro_torch.core.mace import init_mace, mace_energy_forces  # noqa: E402
 from repro_torch.core.symmetric_contraction import symcon_ref  # noqa: E402
-from repro_torch.data.blocking import EdgeBlocking, block_edges, blocking_from_batch  # noqa: E402
+from repro_torch.data.blocking import (  # noqa: E402
+    DEFAULT_BLOCK_E, DEFAULT_BLOCK_N, EdgeBlocking, block_edges, blocking_from_batch,
+)
 from repro_torch.data.collate import collate_bin  # noqa: E402
 from repro_torch.core.binpack import Bins, balance_metrics  # noqa: E402
 from repro_torch.data.molecules import SyntheticCFMDataset  # noqa: E402
-from repro_torch.kernels import cuda_lib  # noqa: E402
+from repro_torch.kernels import autotune, cuda_lib  # noqa: E402
 from repro_torch.kernels.channelwise_tp import kernel as tpk  # noqa: E402
 from repro_torch.kernels.channelwise_tp import ops as tp_ops  # noqa: E402
 from repro_torch.kernels.precision import PRECISIONS, round_to  # noqa: E402
 from repro_torch.kernels.symmetric_contraction import kernel as sck  # noqa: E402
+from repro_torch.kernels.bench import card_line  # noqa: E402
 from repro_torch.launch.multihost import initialize_distributed, spawn_local  # noqa: E402
+from repro_torch.roofline.analysis import HW  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     GraphServer,
     ServeConfig,
@@ -163,8 +191,8 @@ from repro_torch.train.optimizer import adamw, apply_updates  # noqa: E402
 from repro_torch.train.optimizer import tree_map as opt_tree_map  # noqa: E402
 from repro_torch.train.train_loop import Trainer, TrainerConfig  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+HBM_BYTES_PER_S = HW().hbm_bw       # H100 SXM device memory
+FP32_FLOPS = HW().peak_flops_fp32   # H100 SXM fp32 outside the tensor cores
 KERNEL_TOL = 2e-5           # relative to the output's largest magnitude
 SERVE_RTOL = 1e-4           # GPU vs CPU, energies and forces
 SEED = 0
@@ -235,6 +263,12 @@ DP_LOSS_RTOL = 1e-5
 DP_PARAM_TOL = {False: (2e-5, 1e-6), True: (1e-4, 2e-5)}
 DP_DEADLINE_S = 300         # each group of rank processes, start to exit
 DP_COLLECTIVE_TIMEOUT_S = 240
+# the autotune phase: the tuner's search budget (checked before each shape,
+# as the JAX tuner's) and the steps of each training run
+AUTOTUNE_BUDGET_S = 90.0
+AUTOTUNE_STEPS = 2
+GEOMETRY_REPLAYS = 20       # graph replays a reading, per bucket
+GEOMETRY_STEPS = 3          # training steps a reading
 
 KERNELS = {
     "symcon_fwd": dict(kernel=sck.SYMCON_FWD, symbol="symcon_fwd_kernel",
@@ -816,15 +850,16 @@ SERVE_DRILL_TIMEOUT_S = 600
 
 
 def serve_drills():
-    """``python -m repro_torch.launch.serve_mace --config paper`` as a child
-    process, with ``--kill-worker`` and then with ``REPRO_FAULT_PLAN``: each
+    """``python -m repro_torch.launch.serve_mace --config paper
+    --interaction-impl cuda`` as a child process, with ``--kill-worker`` and
+    then with ``REPRO_FAULT_PLAN``: each
     exits 0 with every request served, after a drain-and-rebuild, with one
     graph per bucket in the rebuilt engine.  Returns {drill: its summary}."""
     root = Path(__file__).resolve().parent
     out = {}
     for name, (flags, env) in SERVE_DRILLS.items():
         cmd = [sys.executable, "-m", "repro_torch.launch.serve_mace", "--config", "paper",
-               *flags]
+               "--interaction-impl", "cuda", *flags]
         t0 = time.perf_counter()
         proc = subprocess.run(
             cmd, cwd=root, capture_output=True, text=True, timeout=SERVE_DRILL_TIMEOUT_S,
@@ -957,18 +992,18 @@ def _reset_launches():
         spec["kernel"].reset()
 
 
-def _trainer(capacity, device, params=None, ckpt_dir=None, **overrides):
+def _trainer(capacity, device, params=None, ckpt_dir=None, config=None, **overrides):
     """``examples/train_mace_cfm.py``'s trainer at the paper's width: the
     balanced sampler over ``SyntheticCFMDataset(2000, seed=0,
     max_atoms=256)``, one rank, prefetch 1, ``max_graphs = capacity // 8``;
     random weights from ``SEED`` unless ``params`` are given; ``overrides``
     are ``TrainerConfig`` fields (the kernel selection, the engine and its
-    ranks)."""
+    ranks, the tile geometry)."""
     tcfg = TrainerConfig(capacity=capacity, edge_factor=EDGE_FACTOR,
                          max_graphs=max(16, capacity // 8), prefetch=1,
                          ckpt_dir=ckpt_dir, ckpt_every=0, **overrides)
     dataset = SyntheticCFMDataset(TRAIN_GRAPHS, seed=SEED, max_atoms=max(CAPACITIES))
-    return Trainer(CONFIG, tcfg, dataset, seed=SEED, params=params, device=device)
+    return Trainer(config or CONFIG, tcfg, dataset, seed=SEED, params=params, device=device)
 
 
 def first_bin_blocking(tr):
@@ -1400,7 +1435,10 @@ def dp_rank(cfg) -> int:
     eps at every step.  With ``cfg["deterministic"]`` it runs torch's
     deterministic algorithms and autograd on its own thread, so that its
     gradients are those of any other such process on the same bin, bit
-    for bit."""
+    for bit.  ``cfg["mace"]`` / ``cfg["tcfg"]`` override fields of
+    ``CONFIG`` / ``TrainerConfig`` (the autotune phase's kernel selection);
+    the record names the kernels the trainer ran and its autotune
+    decisions."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if cfg["deterministic"]:
@@ -1414,8 +1452,9 @@ def dp_rank(cfg) -> int:
         initialize_distributed(backend=cfg["backend"], timeout_s=DP_COLLECTIVE_TIMEOUT_S)
     rank = dist.get_rank() if distributed else 0
     torch.cuda.reset_peak_memory_stats()
-    tr = _trainer(TRAIN_ATOMS, None, engine=cfg["engine"], n_ranks=cfg["n_ranks"],
-                  n_nodes=cfg["n_nodes"], compress_grads=cfg["compress"])
+    tr = _trainer(TRAIN_ATOMS, None, config=dataclasses.replace(CONFIG, **cfg.get("mace", {})),
+                  engine=cfg["engine"], n_ranks=cfg["n_ranks"], n_nodes=cfg["n_nodes"],
+                  compress_grads=cfg["compress"], **cfg.get("tcfg", {}))
     engine_step, engine_grads = tr.engine.step, tr.engine.grads
     reduce = getattr(tr.engine, "reduce_grads", None)
     # gloo groups: rank 0 gathers every rank's step on the host
@@ -1481,6 +1520,8 @@ def dp_rank(cfg) -> int:
         work=tel.straggler_matrix().tolist(), loads=tel.load_matrix().tolist(),
         peak_bytes=torch.cuda.max_memory_allocated(), staging_ms=staging_ms,
         n_params=n_params, local=list(tr.engine.local_rank_range),
+        kernels=_kernel_names(tr),
+        decisions={k: d.describe() for k, d in tr.autotune_decisions.items()},
         bins=tr.sampler.bins_for_epoch(0)[:cfg["steps"] * cfg["n_ranks"]])))
     if distributed:
         dist.destroy_process_group()
@@ -1646,6 +1687,244 @@ def data_parallel(card, first_loss):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the autotuner, and "auto" training and serving
+# ---------------------------------------------------------------------------
+
+
+def _kernel_names(tr):
+    """The kernels a trainer runs: impl names, interaction backward, tiles."""
+    cfg = tr.mace_cfg
+    return dict(impl=cfg.symcon_impl_name, interaction_impl=cfg.interaction_impl_name,
+                interaction_bwd_impl=cfg.interaction_bwd_impl,
+                block=[tr.bin_shape.block_n, tr.bin_shape.block_e])
+
+
+def _per_bin_for(cfg):
+    """Each kernel's launches per training bin that ``cfg``'s resolved
+    names imply (``PER_BIN`` when every kind runs cuda)."""
+    want = dict(PER_BIN)
+    if cfg.symcon_impl_name != "cuda":
+        want.update(symcon_fwd=0, symcon_bwd=0)
+    if cfg.interaction_impl_name != "cuda":
+        want.update(tp_scatter_fwd=0, tp_gather_bwd=0)
+    elif cfg.interaction_bwd_impl == "fused":
+        want.update(tp_gather_bwd=0)
+    return want
+
+
+def tune_and_check(card):
+    """Tune the main paths' shapes into a temporary trajectory, print each
+    decision beside the committed one with the two best measured configs,
+    and hold the committed table to ``check_table("gpu")``.  Returns the
+    tuning seconds."""
+    shapes = {kind: [s for s in shape_list if s["k"] == CONFIG.channels]
+              for kind, shape_list in autotune.CANONICAL_SHAPES.items()}
+    committed = autotune.load_table()
+    with tempfile.TemporaryDirectory() as tmp:
+        traj = Path(tmp) / "bench_kernels.json"
+        t0 = time.perf_counter()
+        rows = autotune.tune(shapes, AUTOTUNE_BUDGET_S, platform="gpu", trajectory_path=traj)
+        tune_s = time.perf_counter() - t0
+        runs = autotune.load_trajectory(traj)
+        fresh = autotune.build_table(platforms=["gpu"], trajectory_path=traj)
+    failed = sorted({(r["kind"], r["impl"], r["mode"], r["params"].get("E", r["params"].get("N")))
+                     for r in rows if r.get("failed")})
+    print(f"autotune: tuned {sum(map(len, shapes.values()))} shapes in {tune_s:.1f}s (budget "
+          f"{AUTOTUNE_BUDGET_S:g}s, checked before each shape): {len(rows)} rows, "
+          f"{len(failed)} failed configs {failed}; card {card}", flush=True)
+    for kind, shape_list in shapes.items():
+        for dims in shape_list:
+            for mode in autotune.MODES:
+                d = autotune.lookup(fresh, kind, dims, "gpu", mode)
+                c = autotune.lookup(committed, kind, dims, "gpu", mode)
+                top = sorted(autotune.measured_scores(runs, kind, "gpu", mode, dims,
+                                                      max_dist=0.0).items(),
+                             key=lambda kv: kv[1][0])[:2]
+                best = "; ".join(f"{'/'.join(str(x) for x in cfg if x is not None)} "
+                                 f"{us:.1f}us" for cfg, (us, _) in top)
+                print(f"autotune {kind} {dims} {mode}: fresh "
+                      f"{d.describe() if d else None} [best two: {best}] | committed "
+                      f"{c.describe() if c else None}; card {card}", flush=True)
+    problems = autotune.check_table("gpu")
+    if problems:
+        raise AssertionError(f"the committed tuning table fails its check: {problems}")
+    print("autotune: the committed table passes check_table('gpu')", flush=True)
+    return tune_s
+
+
+def train_auto(card):
+    """2 steps of a ``Trainer`` with ``"auto"`` impls and 2 of one naming
+    what they resolve to, each in a deterministic process of its own: the
+    same kernels, losses equal bit for bit, each step's launches per bin
+    those the names imply.  Returns each kernel's launches in the "auto"
+    run."""
+    resolved, decisions = autotune.resolve_mace_config(
+        dataclasses.replace(CONFIG, impl="auto", interaction_impl="auto"),
+        capacity=TRAIN_ATOMS, edge_factor=EDGE_FACTOR, platform="gpu")
+    for d in decisions.values():
+        print(f"autotune: {d.describe()}", flush=True)
+    d = decisions["interaction"]
+    explicit = dict(mace=dict(impl=resolved.impl, interaction_impl=resolved.interaction_impl,
+                              interaction_bwd_impl=resolved.interaction_bwd_impl,
+                              interaction_block_n=resolved.interaction_block_n),
+                    tcfg={} if d.block_n is None else dict(block_n=d.block_n,
+                                                            block_e=d.block_e))
+    per_bin = _per_bin_for(resolved)
+    torch.cuda.empty_cache()  # the parent's cached blocks, for the children
+    common = dict(engine="sequential", n_ranks=1, n_nodes=None, compress=False,
+                  steps=AUTOTUNE_STEPS, deterministic=True)
+    with tempfile.TemporaryDirectory() as root:
+        (auto, _, _), = _spawn_ranks(root, "autotune_auto", 1, **common,
+                                     tcfg=dict(impl="auto", interaction_impl="auto"))
+        (named, _, _), = _spawn_ranks(root, "autotune_named", 1, **common, **explicit)
+    print(f"autotune train: 'auto' ran {auto['kernels']}, losses {auto['losses']}, "
+          f"launches {[r['launches'] for r in auto['rows']]}, step_ms "
+          f"{[round(r['ms'], 2) for r in auto['rows']]}; named ran {named['kernels']}, "
+          f"losses {named['losses']}; card {card}", flush=True)
+    if auto["kernels"] != named["kernels"] or set(auto["decisions"]) != set(decisions):
+        raise AssertionError("the 'auto' trainer did not resolve to the named kernels")
+    if (len(auto["losses"]) != AUTOTUNE_STEPS or auto["losses"] != named["losses"]
+            or not all(np.isfinite(auto["losses"]))):
+        raise AssertionError(f"'auto' losses {auto['losses']} differ from the named "
+                             f"trainer's {named['losses']}")
+    for info in (auto, named):
+        if any(r["launches"] != per_bin for r in info["rows"]):
+            raise AssertionError(f"launches {[r['launches'] for r in info['rows']]} "
+                                 f"per step, expected {per_bin} for the resolved names")
+    return {k: sum(r["launches"][k] for r in auto["rows"]) for k in PER_BIN}
+
+
+def serve_auto(params, mols, fp32_results, card):
+    """The 48 molecules through a ``GraphServer`` with
+    ``interaction_impl="auto"``: one graph per bucket (``serve``), the
+    decisions in ``stats()``, the kernels of the resolved names launched,
+    energies and forces within ``PRECISION_TOL["fp32"]`` of phase 3's."""
+    results, stats, launches, _ = serve(params, mols,
+                                        dataclasses.replace(CONFIG, interaction_impl="auto"))
+    decisions = stats["autotune_decisions"]
+    e32 = np.array([r.energy for r in fp32_results])
+    f32 = np.concatenate([r.forces.ravel() for r in fp32_results])
+    err_e = _l2_rel(np.array([r.energy for r in results]), e32)
+    err_f = _l2_rel(np.concatenate([r.forces.ravel() for r in results]), f32)
+    print(f"autotune serve: decisions {decisions}, {stats['served']} graphs "
+          f"graphs_per_s={stats['graphs_per_s']:.2f}, census {stats['compile_census']}, "
+          f"launches {launches}, energies / forces L2-rel {err_e:.3e} / {err_f:.3e} "
+          f"against phase 3; card {card}", flush=True)
+    if set(decisions) != {"interaction"}:
+        raise AssertionError(f"the server reported decisions {decisions}")
+    resolved, _ = autotune.resolve_mace_config(
+        dataclasses.replace(CONFIG, interaction_impl="auto"), capacity=max(CAPACITIES),
+        edge_factor=EDGE_FACTOR, platform="gpu")
+    want = [k for k, n in _per_bin_for(resolved).items() if n]
+    if any(launches[k] <= 0 for k in want):
+        raise AssertionError(f"the 'auto' server launched {launches}, expected {want}")
+    if max(err_e, err_f) > PRECISION_TOL["fp32"]:
+        raise AssertionError("the 'auto' server disagrees with phase 3's")
+    return launches
+
+
+def _step_ms(tr, steps):
+    """CUDA-event ms of each of ``tr``'s next ``steps`` engine steps."""
+    times, engine_step = [], tr.engine.step
+
+    def timed_step(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = engine_step(*args)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        return out
+
+    tr.engine.step = timed_step
+    try:
+        hist = tr.train(n_epochs=1, max_steps=tr.global_step + steps)["history"]
+    finally:
+        tr.engine.step = engine_step
+    if len(times) != steps or not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"the geometry run took {len(times)} of {steps} steps: {hist}")
+    return times
+
+
+def _abba(run_default, run_auto):
+    """Readings in the order default, auto, auto, default."""
+    d1, a1, a2, d2 = run_default(), run_auto(), run_auto(), run_default()
+    return [d1, d2], [a1, a2]
+
+
+def compare_geometries(params, mols, card):
+    """The tiles ``"auto"`` resolves to against the default 32x128, on the
+    same inputs, each read twice (default, auto, auto, default) so that a
+    configuration's own spread stands beside the gap: per serving bucket,
+    the CUDA-event ms of a graph replay on one real bin of ``mols`` (the
+    two outputs within ``KERNEL_TOL``); per geometry the training and
+    serving resolutions name, ms of training steps on the same 3,072-atom
+    bins.  Returns the readings."""
+    default = (DEFAULT_BLOCK_N, DEFAULT_BLOCK_E)
+    serve_cfg, serve_dec = autotune.resolve_mace_config(
+        dataclasses.replace(CONFIG, interaction_impl="auto"), capacity=max(CAPACITIES),
+        edge_factor=EDGE_FACTOR, platform="gpu")
+    _, train_dec = autotune.resolve_mace_config(
+        dataclasses.replace(CONFIG, interaction_impl="auto"), capacity=TRAIN_ATOMS,
+        edge_factor=EDGE_FACTOR, platform="gpu")
+    tiles = {path: (d["interaction"].block_n, d["interaction"].block_e)
+             for path, d in (("serving", serve_dec), ("training", train_dec))}
+    out = {"card": card, "tiles": {p: list(t) for p, t in tiles.items()}, "serving": {},
+           "training": {}}
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = bucket_ladder(CAPACITIES, edge_factor=EDGE_FACTOR)
+    tuned = bucket_ladder(CAPACITIES, edge_factor=EDGE_FACTOR, block_n=tiles["serving"][0],
+                          block_e=tiles["serving"][1])
+    engines = (make_serve_engine(CONFIG, params, base),
+               make_serve_engine(serve_cfg, params, tuned))
+    try:
+        for b_default, b_auto in zip(base, tuned):
+            picked = _bin_for(b_default, sorted(mols, key=lambda m: -m.n_atoms))
+            calls = [lambda eng=eng, b=b, batch=eng.collate(picked, b)[0]: eng.forward(batch, b)
+                     for eng, b in zip(engines, (b_default, b_auto))]
+            want = tuple(t.clone() for t in calls[0]())
+            got = tuple(t.clone() for t in calls[1]())
+            err, scale, ok = _compare(got, want)
+            d_ms, a_ms = _abba(lambda: _time_ms(calls[0], GEOMETRY_REPLAYS),
+                               lambda: _time_ms(calls[1], GEOMETRY_REPLAYS))
+            out["serving"][bucket_key(b_default)] = dict(default=d_ms, auto=a_ms)
+            print(f"geometry serving {bucket_key(b_default)} ({len(picked)} graphs): replay "
+                  f"ms at {default[0]}x{default[1]} {d_ms}, at {tiles['serving'][0]}x"
+                  f"{tiles['serving'][1]} {a_ms} (default, auto, auto, default); "
+                  f"max_abs_err={err:.3e} (tol {KERNEL_TOL:g}*max(1,{scale:.3g})); "
+                  f"card {card}", flush=True)
+            if not ok:
+                raise AssertionError(f"the {tiles['serving']} graph of "
+                                     f"{bucket_key(b_default)} disagrees with the default's")
+    finally:
+        for eng in engines:
+            eng.close()
+
+    others = sorted({t for t in tiles.values() if t != default})
+    if not others:
+        print(f"geometry training: both paths resolve to {default}; nothing to compare",
+              flush=True)
+    for t in others:
+        torch.cuda.empty_cache()
+        trainers = (_trainer(TRAIN_ATOMS, None),
+                    _trainer(TRAIN_ATOMS, None, block_n=t[0], block_e=t[1],
+                             config=dataclasses.replace(CONFIG, interaction_block_n=t[0])))
+        for tr in trainers:
+            _step_ms(tr, 1)  # warm-up
+        d_ms, a_ms = _abba(lambda: _step_ms(trainers[0], GEOMETRY_STEPS),
+                           lambda: _step_ms(trainers[1], GEOMETRY_STEPS))
+        out["training"][f"{t[0]}x{t[1]}"] = dict(default=d_ms, auto=a_ms)
+        print(f"geometry training at {TRAIN_ATOMS} atoms: step ms at {default[0]}x{default[1]} "
+              f"{d_ms}, at {t[0]}x{t[1]} {a_ms} (default, auto, auto, default; the same "
+              f"bins in each pair); card {card}", flush=True)
+        del trainers
+    return out
+
+
 def kernel_units():
     """(label, (source, header)) of the nine kernel libraries: the
     symmetric contraction's spec and both layers' tensor-product specs, each
@@ -1661,7 +1940,7 @@ def kernel_units():
 
 def kernel_entries(results, training, identity, launches, train, train_profile,
                    variant_launches, bf16_training_launches, identity_launches,
-                   dp_launches, serving_profile, graph_rows):
+                   dp_launches, serving_profile, graph_rows, autotune_launches):
     """The ``kernels`` JSON line: each kernel at fp32 (the serving run's
     launches, all of them through graph replays, with its launches per
     replay of each bucket's graph, the serving profile's launches recorded
@@ -1669,7 +1948,8 @@ def kernel_entries(results, training, identity, launches, train, train_profile,
     launches summed over their ranks), at bf16 and fp8 (the launches of the
     serving run at that precision; bf16 also the variant training run's),
     and the identity-blocked interaction kernels (the unblocked bin's
-    launches)."""
+    launches).  The fp32 entries also carry the autotune phase's launches
+    (its "auto" training run and its "auto" server)."""
     entries = []
     for name, spec in KERNELS.items():
         common = dict(route="cuda", source=spec["source"], replaces=spec["replaces"])
@@ -1701,7 +1981,8 @@ def kernel_entries(results, training, identity, launches, train, train_profile,
                     replay_launches_per_bin={b: r["replay_launches"][name]
                                              for b, r in graph_rows.items()},
                     serving_device_launches_recorded=serving_profile[name][0],
-                    serving_device_launches_made=serving_profile[name][1])
+                    serving_device_launches_made=serving_profile[name][1],
+                    autotune_launches={run: n[name] for run, n in autotune_launches.items()})
             elif p == "bf16":
                 entry.update(training_launches=bf16_training_launches[name])
             entries.append(entry)
@@ -1729,10 +2010,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}; card: {card}", flush=True)
 
@@ -1780,12 +2058,20 @@ def main() -> int:
     compare_training_with_cpu()
     dp_launches = data_parallel(card, train["history"][0]["loss"])
 
+    t0 = time.perf_counter()
+    tune_s = tune_and_check(card)
+    autotune_launches = {"training": train_auto(card),
+                         "serving": serve_auto(params, mols, results, card)}
+    print(f"geometry: {json.dumps(compare_geometries(params, mols, card))}", flush=True)
+    print(f"autotune phase: {time.perf_counter() - t0:.1f}s, of which tuning "
+          f"{tune_s:.1f}s", flush=True)
+
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernel_entries(
         kernel_results, training_results, identity_results, launches, train,
         train_profile, variant_launches, bf16_training_launches, identity_launches,
-        dp_launches, serving_profile, graph_rows)}))
+        dp_launches, serving_profile, graph_rows, autotune_launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -34,6 +34,31 @@ JAX_ENGINE_NAMES = {"sequential": "sequential", "shard_map": "data_parallel",
                     "multihost": "multihost"}
 
 
+def tuning_record_from_jax(rec: Mapping[str, Any]) -> Dict[str, Any]:
+    """A record of the JAX autotuner's files under the port's names: a
+    trajectory row (``impl``, ``params["bwd_impl"]``), a trajectory run
+    (``backend``, ``interpret_pallas``, its ``rows``), a tuning-table entry
+    (``platform``, ``impl``, ``bwd_impl``) or a whole table (its
+    ``entries``).  Other fields are copied as they are."""
+    out = dict(rec)
+    for key in ("rows", "entries"):
+        if key in rec:
+            out[key] = [tuning_record_from_jax(r) for r in rec[key]]
+    for key in ("backend", "platform"):
+        if key in rec:
+            out[key] = JAX_PLATFORMS[rec[key]]
+    if "interpret_pallas" in rec:
+        out["interpret_kernels"] = out.pop("interpret_pallas")
+    if "impl" in rec:
+        out["impl"] = JAX_IMPL_NAMES.get(rec["impl"], rec["impl"])
+    if rec.get("bwd_impl") is not None:
+        out["bwd_impl"] = JAX_BWD_IMPL_NAMES[rec["bwd_impl"]]
+    if "bwd_impl" in rec.get("params", {}):
+        out["params"] = dict(rec["params"],
+                             bwd_impl=JAX_BWD_IMPL_NAMES[rec["params"]["bwd_impl"]])
+    return out
+
+
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     """Nested dict -> {``a/b/c``: leaf}."""
     flat: Dict[str, Any] = {}

@@ -30,7 +30,17 @@ Kernel selection is the JAX package's, under the port's names
 contraction, ``interaction_impl`` the interaction op (``ref``, ``fused``,
 ``cuda`` or a registered name), ``interaction_bwd_impl`` the interaction
 backward of the cuda impls (``cuda`` or ``fused``), and ``precision``
-rewrites ``cuda`` to its ``cuda_bf16`` / ``cuda_fp8`` variant.
+rewrites ``cuda`` to its ``cuda_bf16`` / ``cuda_fp8`` variant.  Either
+impl may be the ``"auto"`` sentinel, which the build paths (``Trainer``,
+``make_engine``, ``ServeEngine``, ``GraphServer``) resolve from the tuning
+table (``kernels.autotune.resolve_mace_config``) before the model runs; at
+the raw-model level ``interaction_impl="auto"`` follows ``impl``, and a raw
+``impl="auto"`` raises when the name is resolved.  One divergence from the
+JAX ``MaceConfig``: its defaults are ``impl="fused"`` and
+``interaction_impl="auto"``, the port's are ``"cuda"`` for both, so a bare
+config runs the kernels on the card.  The JAX ``dtype`` field has no
+counterpart: the port's parameters and features are float32, the one dtype
+its kernels compute in.
 """
 from __future__ import annotations
 
@@ -70,10 +80,13 @@ class MaceConfig:
     readout_mlp: int = 16
     avg_num_neighbors: float = 12.0
     # symmetric-contraction impl: a name in repro_torch.kernels.registry
-    # ("ref" | "fused" | "cuda" | registered)
+    # ("ref" | "fused" | "cuda" | registered), or "auto" (resolved by the
+    # build paths from the tuning table; a raw forward refuses it)
     impl: str = "cuda"
     # interaction (TP + scatter) impl: a name of the registry's interaction
-    # kind, or of its channelwise_tp kind (wrapped in the receiver sum).
+    # kind, or of its channelwise_tp kind (wrapped in the receiver sum), or
+    # "auto": the build paths resolve it from the tuning table (impl, tile
+    # geometry and bwd_impl); at the raw-model level it follows ``impl``.
     # "cuda" reads the data pipeline's blk_* arrays when the batch has them
     # and takes the unblocked path when it has not.
     interaction_impl: str = "cuda"
@@ -93,12 +106,6 @@ class MaceConfig:
 
     def __post_init__(self):
         check_precision(self.precision)
-        for field in ("impl", "interaction_impl"):
-            if getattr(self, field) == "auto":
-                raise NotImplementedError(
-                    f"{field}='auto' needs the autotuner, which is not ported; "
-                    "name a registry impl (e.g. 'cuda')"
-                )
 
     @property
     def hidden_spec(self) -> LSpec:
@@ -124,11 +131,12 @@ class MaceConfig:
         return SymConSpec(self.a_spec, self.hidden_spec, self.correlation)
 
     def _with_precision(self, name: str) -> str:
-        """Map an impl name to its ``self.precision`` variant: fp32 leaves
-        it alone; a reduced precision rewrites ``"cuda"`` to
+        """Map an impl name to its ``self.precision`` variant: fp32 (or the
+        ``"auto"`` sentinel, resolved later by the build paths) leaves it
+        alone; a reduced precision rewrites ``"cuda"`` to
         ``"cuda_<precision>"``, accepts a name that already carries the
         suffix, and refuses any other impl, never running fp32 silently."""
-        if self.precision == "fp32" or name.endswith("_" + self.precision):
+        if self.precision == "fp32" or name == "auto" or name.endswith("_" + self.precision):
             return name
         if name == "cuda":
             return f"cuda_{self.precision}"
@@ -143,7 +151,8 @@ class MaceConfig:
 
     @property
     def interaction_impl_name(self) -> str:
-        return self._with_precision(self.interaction_impl)
+        name = self.impl if self.interaction_impl == "auto" else self.interaction_impl
+        return self._with_precision(name)
 
     def interaction_spec_at(self, layer: int) -> InteractionSpec:
         return InteractionSpec(

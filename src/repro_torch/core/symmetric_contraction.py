@@ -119,6 +119,17 @@ def build_symcon_tables(spec: SymConSpec) -> SymConTables:
     return SymConTables(tuple(entries))
 
 
+def symcon_flops(spec: SymConSpec, N: int, k: int) -> int:
+    """Useful-FLOP estimate for the sparse-table scheme (the autotuner's
+    roofline cells)."""
+    total = 0
+    for (L, nu, idx, M, eta, val) in build_symcon_tables(spec).entries:
+        nnz = len(val)
+        total += N * k * nnz * (nu - 1 + 2)      # products + weight + val
+        total += N * k * nnz * (2 * L + 1) * 2   # scatter matmul
+    return total
+
+
 @functools.lru_cache(maxsize=None)
 def _fused_tensors(tables: SymConTables, dtype, device):
     """Per (L, nu) of ``tables``: the product columns [nnz, nu] and the

@@ -22,10 +22,12 @@ and checks the census of the rebuilt engine.
 
 Added flags: ``--device`` (default the CUDA card; ``cpu`` runs the
 kernels' plain versions), ``--impl`` / ``--interaction-impl`` /
-``--precision`` as in ``launch/train_mace_cfm.py`` (both impls default to
-``cuda``; ``auto`` needs the autotuner, which is not ported, and raises),
-and ``--config``: ``example`` is the JAX example's widths, ``paper`` the
-paper's (``configs/mace_cfm.py`` ``CONFIG``).
+``--precision`` as in ``launch/train_mace_cfm.py`` (``--impl`` defaults
+to ``cuda``, ``--interaction-impl`` to ``auto`` as in the JAX example:
+the server resolves it from the tuning table at the largest bucket and
+prints each decision as an ``autotune:`` line), and ``--config``:
+``example`` is the JAX example's widths, ``paper`` the paper's
+(``configs/mace_cfm.py`` ``CONFIG``).
 """
 from __future__ import annotations
 
@@ -65,9 +67,10 @@ def main(argv=None) -> int:
     ap.add_argument("--config", choices=["example", "paper"], default="example")
     ap.add_argument("--impl", default="cuda",
                     help="symmetric-contraction impl from kernels.registry "
-                         "(ref | fused | cuda | registered)")
-    ap.add_argument("--interaction-impl", default="cuda",
-                    help="interaction (TP + scatter) impl from kernels.registry")
+                         "(ref | fused | cuda | registered), or 'auto'")
+    ap.add_argument("--interaction-impl", default="auto",
+                    help="interaction (TP + scatter) impl from kernels.registry, "
+                         "or 'auto' to resolve it from the tuning table")
     ap.add_argument("--precision", default="fp32", choices=["fp32", "bf16", "fp8"],
                     help="kernel operand precision: rewrites cuda impls to their "
                          "reduced-precision variants (sums stay fp32)")
@@ -87,8 +90,7 @@ def main(argv=None) -> int:
     capacities = tuple(int(c) for c in args.capacities.split(","))
     ds = SyntheticCFMDataset(256, seed=1, max_atoms=max(capacities))
     print(f"MACE params: {param_count(params):,}; bucket ladder: {capacities}; "
-          f"config {args.config}, impl {cfg.symcon_impl_name}, "
-          f"interaction {cfg.interaction_impl_name}")
+          f"config {args.config}")
 
     t0 = time.perf_counter()
     server = GraphServer(
@@ -100,7 +102,10 @@ def main(argv=None) -> int:
     on_card = server.device.type == "cuda"
     print(f"warm start ({len(server.buckets)} buckets "
           f"{'captured' if on_card else 'warmed eagerly'}) on {server.device} "
-          f"in {time.perf_counter() - t0:.1f}s")
+          f"in {time.perf_counter() - t0:.1f}s; impl {server.mace_cfg.symcon_impl_name}, "
+          f"interaction {server.mace_cfg.interaction_impl_name}")
+    for d in server.autotune_decisions.values():
+        print(f"autotune: {d.describe()}")
 
     # skewed request mix: hubs from the large tail, the rest small
     by_size = sorted(range(len(ds)), key=lambda i: int(ds.sizes[i]))

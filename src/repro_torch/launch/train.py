@@ -23,6 +23,12 @@ process, unless ``--engine`` says otherwise.  The backend is ``nccl`` when
 every rank has a card of its own and ``gloo`` otherwise (CPU ranks, or
 several ranks on one card); the choice is printed.
 
+``--interaction-impl`` defaults to ``auto``, as the JAX config's
+``interaction_impl`` does: the trainer resolves it from the tuning table
+for this run's shape bucket and each decision is printed as an
+``autotune:`` line; ``--impl`` overrides the config's contraction impl
+(``auto`` too).
+
 Not ported: the LM architectures (``--arch``), ``--supervised`` and
 ``--elastic`` (the resilience and elastic slices).
 """
@@ -57,6 +63,11 @@ def main(argv=None) -> int:
     ap.add_argument("--n-ranks", type=int, default=None,
                     help="total data-parallel ranks")
     ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--impl", default=None,
+                    help="symmetric-contraction impl, or 'auto' (default: the config's)")
+    ap.add_argument("--interaction-impl", default="auto",
+                    help="interaction impl, or 'auto' (the default, as the JAX "
+                         "config's): resolved from the tuning table")
     args = ap.parse_args(argv)
 
     import torch.distributed as dist
@@ -106,9 +117,12 @@ def main(argv=None) -> int:
                              max_atoms=cap // 4 if args.reduced else None)
     tcfg = TrainerConfig(capacity=cap, edge_factor=32, max_graphs=max(16, cap // 8),
                          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                         compress_grads=args.compress_grads, **extra)
+                         compress_grads=args.compress_grads, impl=args.impl,
+                         interaction_impl=args.interaction_impl, **extra)
     try:
         tr = Trainer(cfg, tcfg, ds, seed=0, device=device)
+        for d in tr.autotune_decisions.values():
+            print(f"autotune: {d.describe()}")
         if tr.maybe_restore():
             print(f"resumed at step {tr.global_step}")
         start = tr.global_step

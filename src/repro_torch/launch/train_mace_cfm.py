@@ -32,10 +32,12 @@ one card, else NCCL):
 Kernel selection, with the flags
 of ``examples/train_mace_cfm.py`` under the port's names (``pallas`` ->
 ``cuda``, ``xla`` -> ``fused``): ``--impl`` (the symmetric contraction) and
-``--interaction-impl`` (``ref`` | ``fused`` | ``cuda`` | registered; by
-default the ``--impl`` name), ``--bwd-impl`` (``cuda`` | ``fused``) and
-``--precision`` (``fp32`` | ``bf16`` | ``fp8``: ``cuda`` becomes
-``cuda_bf16`` / ``cuda_fp8``).
+``--interaction-impl`` (``ref`` | ``fused`` | ``cuda`` | registered, or
+``auto``, the default as in the JAX example: impl, tile geometry and
+backward from the tuning table for this run's shape bucket,
+``kernels.autotune``; each decision is printed as an ``autotune:`` line),
+``--bwd-impl`` (``cuda`` | ``fused``) and ``--precision`` (``fp32`` |
+``bf16`` | ``fp8``: ``cuda`` becomes ``cuda_bf16`` / ``cuda_fp8``).
 """
 from __future__ import annotations
 
@@ -56,11 +58,13 @@ def main(argv=None) -> int:
     ap.add_argument("--sampler", choices=["balanced", "fixed"], default="balanced")
     ap.add_argument("--impl", default="cuda",
                     help="symmetric-contraction impl from kernels.registry "
-                         "(ref | fused | cuda | registered)")
-    ap.add_argument("--interaction-impl", default=None,
-                    help="interaction (TP + scatter) impl from kernels.registry "
-                         "(default: the --impl name); cuda reads the edge "
-                         "blocking that collation builds for it")
+                         "(ref | fused | cuda | registered), or 'auto' to "
+                         "resolve from the tuning table")
+    ap.add_argument("--interaction-impl", default="auto",
+                    help="interaction (TP + scatter) impl from kernels.registry; "
+                         "'auto' resolves impl + tile geometry + bwd from the "
+                         "tuning table for this run's shape bucket; cuda reads "
+                         "the edge blocking that collation builds for it")
     ap.add_argument("--bwd-impl", choices=["cuda", "fused"], default="cuda",
                     help="backward of the cuda interaction impls: cuda = the "
                          "gather + TP-transpose kernel, fused = the VJP of "
@@ -102,7 +106,7 @@ def main(argv=None) -> int:
         n_species=10, channels=args.channels, hidden_ls=(0, 1), sh_lmax=3,
         a_ls=(0, 1, 2, 3), correlation=args.correlation, n_interactions=2,
         avg_num_neighbors=12.0, impl=args.impl,
-        interaction_impl=args.interaction_impl or args.impl,
+        interaction_impl=args.interaction_impl,
         interaction_bwd_impl=args.bwd_impl,
     )
     ds = SyntheticCFMDataset(args.n_graphs, seed=0, max_atoms=args.max_atoms)
@@ -180,6 +184,8 @@ def _train(args, cfg, tcfg, ds, device) -> int:
           f"impl={tr.mace_cfg.symcon_impl_name} "
           f"interaction={tr.mace_cfg.interaction_impl_name} "
           f"bwd={tr.mace_cfg.interaction_bwd_impl} device={tr.device}")
+    for d in tr.autotune_decisions.values():
+        print(f"autotune: {d.describe()}")
 
     t0 = time.perf_counter()
     hist = tr.train(n_epochs=1_000_000, max_steps=args.steps)["history"]

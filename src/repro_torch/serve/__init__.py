@@ -23,7 +23,12 @@ from .buckets import (  # noqa: F401
     pack_requests,
     select_bucket,
 )
-from .engine import ServeEngine, make_serve_engine, resolve_device  # noqa: F401
+from .engine import (  # noqa: F401
+    ServeEngine,
+    make_serve_engine,
+    resolve_device,
+    resolve_serve_config,
+)
 from .server import (  # noqa: F401
     GraphServer,
     RequestTimeout,
@@ -48,4 +53,5 @@ __all__ = [
     "select_bucket",
     "make_serve_engine",
     "resolve_device",
+    "resolve_serve_config",
 ]

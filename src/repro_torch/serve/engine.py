@@ -28,6 +28,13 @@ captures nothing: its census is 0 per bucket.
 
 ``device=None`` means CUDA: without a card the engine raises rather than
 run on the CPU, unless the caller asks for ``device="cpu"``.
+
+An ``"auto"`` impl resolves from the tuning table before anything is
+captured (:func:`resolve_serve_config`, the ``fwd_bwd`` rows at the
+largest bucket, since forces are a positions-gradient), with the tile
+search pinned to the ladder's geometry: the buckets' blocking is fixed
+here.  ``GraphServer`` resolves before it builds its ladder and adopts the
+decision's geometry instead.
 """
 from __future__ import annotations
 
@@ -41,12 +48,32 @@ from repro_torch.bridge import params_to, resolve_device
 from repro_torch.core.mace import MaceConfig, mace_energy_forces
 from repro_torch.data.collate import BinShape, collate_bin
 from repro_torch.data.molecules import Molecule
-from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import autotune, cuda_lib
 from repro_torch.train.engine import interaction_consumes_blocking
 
 from .buckets import bucket_key
 
-__all__ = ["ServeEngine", "make_serve_engine", "resolve_device"]
+__all__ = ["ServeEngine", "make_serve_engine", "resolve_device", "resolve_serve_config"]
+
+
+def resolve_serve_config(
+    mace_cfg: MaceConfig,
+    *,
+    capacity: int,
+    edge_factor: int,
+    platform: str,
+    block_candidates: Optional[Sequence[Tuple[int, int]]] = None,
+) -> Tuple[MaceConfig, Dict[str, autotune.Decision]]:
+    """Resolve ``"auto"`` impl sentinels for the serving shape bucket.
+
+    ``capacity`` is the *largest* bucket's atom budget (the shape the hot
+    path runs at its most); forces are a positions-gradient, so the
+    ``fwd_bwd`` tuning rows are the evidence.  A config without ``"auto"``
+    comes back unchanged, with no decisions."""
+    return autotune.resolve_mace_config(
+        mace_cfg, capacity=capacity, edge_factor=edge_factor, platform=platform,
+        mode="fwd_bwd", block_candidates=block_candidates,
+    )
 
 
 @dataclasses.dataclass
@@ -83,6 +110,12 @@ class ServeEngine:
         device: Optional[Any] = None,
     ):
         self.device = resolve_device(device)
+        mace_cfg, _ = resolve_serve_config(
+            mace_cfg, capacity=max(b.max_nodes for b in buckets),
+            edge_factor=max(b.max_edges // b.max_nodes for b in buckets),
+            platform=autotune.platform_of(self.device),
+            block_candidates=[(buckets[0].block_n, buckets[0].block_e)],
+        )
         self.mace_cfg = mace_cfg
         self.buckets = tuple(buckets)
         self.params = params_to(params, self.device)

@@ -42,6 +42,12 @@ requeued), or the new one, under the bucket's lock.
 ``REPRO_FAULT_PLAN`` (``resilience.faults``) arms the same drill from the
 environment: with a ``serve_worker_fault`` spec, the first bin a worker
 takes after startup raises.
+
+An ``"auto"`` impl resolves from the tuning table before the ladder is
+built (``engine.resolve_serve_config`` at the largest bucket); the
+interaction decision's tile geometry becomes every bucket's, and the
+decisions are kept in ``GraphServer.autotune_decisions`` and reported by
+``stats()``.
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ import numpy as np
 from repro_torch.core.mace import MaceConfig
 from repro_torch.data.collate import BinShape
 from repro_torch.data.molecules import Molecule
+from repro_torch.kernels import autotune
 from repro_torch.resilience.faults import FaultPlan
 
 from .buckets import (
@@ -67,7 +74,7 @@ from .buckets import (
     bucket_ladder,
     pack_requests,
 )
-from .engine import ServeEngine, make_serve_engine, resolve_device
+from .engine import ServeEngine, make_serve_engine, resolve_device, resolve_serve_config
 
 __all__ = [
     "ServeConfig",
@@ -185,6 +192,16 @@ class GraphServer:
     ):
         # None -> the CUDA card; raises before any thread starts if absent
         self.device = resolve_device(device)
+        # resolve "auto" impls BEFORE the ladder is built, so that a tuning
+        # decision's tile geometry flows into every bucket's blocking
+        # (mirror of Trainer.__init__)
+        mace_cfg, self.autotune_decisions = resolve_serve_config(
+            mace_cfg, capacity=max(cfg.capacities), edge_factor=cfg.edge_factor,
+            platform=autotune.platform_of(self.device),
+        )
+        d = self.autotune_decisions.get("interaction")
+        if d is not None and d.block_n is not None:
+            cfg = dataclasses.replace(cfg, block_n=int(d.block_n), block_e=int(d.block_e))
         self.mace_cfg = mace_cfg
         self.cfg = cfg
         self.buckets = bucket_ladder(
@@ -713,6 +730,8 @@ class GraphServer:
             "bucket_bins": bucket_bins,
             "bucket_graphs": bucket_graphs,
             "compile_census": self.engine.compile_census(),
+            "autotune_decisions": {kind: d.describe()
+                                   for kind, d in self.autotune_decisions.items()},
             "workers": self._healthcheck_rows(),
             "rebuilds": len(self.rebuild_events),
         }

@@ -72,7 +72,7 @@ import torch.distributed as dist
 from repro_torch.bridge import flatten, unflatten
 from repro_torch.core.mace import MaceConfig, weighted_loss
 from repro_torch.data.collate import BinShape, collate_bin
-from repro_torch.kernels import registry
+from repro_torch.kernels import autotune, registry
 from repro_torch.launch.mesh import make_dp_group, make_node_device_groups
 
 from .compression import all_reduce_, compressed_allreduce_ef
@@ -239,6 +239,7 @@ class _Engine:
 
     def __init__(self, mace_cfg: MaceConfig, tcfg, optimizer: Transform,
                  n_graphs: int, device: torch.device):
+        self.mace_cfg = mace_cfg
         self.n_ranks = tcfg.n_ranks
         self.device = device
         self.optimizer = optimizer
@@ -485,9 +486,22 @@ ENGINES = {
 def make_engine(name: str, mace_cfg: MaceConfig, tcfg, optimizer: Transform,
                 n_graphs: int, device: torch.device):
     """Engine factory: ``name`` in {"sequential", "data_parallel",
-    "multihost"} (the JAX names through ``bridge.JAX_ENGINE_NAMES``)."""
+    "multihost"} (the JAX names through ``bridge.JAX_ENGINE_NAMES``).
+
+    ``"auto"`` impl sentinels the caller left in ``mace_cfg`` resolve here
+    from the tuning table, a safety net for callers that build engines
+    directly.  The tile search is pinned to ``(tcfg.block_n,
+    tcfg.block_e)``: the collation contract is fixed at this layer, so the
+    decision may pick the impl and its backward but not the geometry (the
+    Trainer resolves before it builds its BinShape and adopts the
+    decision's geometry instead)."""
     try:
         cls = ENGINES[name]
     except KeyError:
         raise KeyError(f"unknown engine {name!r}; available: {sorted(ENGINES)}") from None
+    mace_cfg, _ = autotune.resolve_mace_config(
+        mace_cfg, capacity=tcfg.capacity, edge_factor=tcfg.edge_factor,
+        platform=autotune.platform_of(device),
+        block_candidates=[(tcfg.block_n, tcfg.block_e)],
+    )
     return cls(mace_cfg, tcfg, optimizer, n_graphs, device)

@@ -25,13 +25,18 @@ same in every rank process, which cannot reproduce the JAX package's
 the process index and count come from the engine.
 
 Not ported: elastic rescale (``rescale``, ``ElasticTrainer``, restore
-across rank or process counts), remat, the heartbeat, the step watchdog,
-the fault plan and the autotuned ``"auto"`` impls.
+across rank or process counts), remat, the heartbeat, the step watchdog
+and the fault plan.
 
 ``TrainerConfig.impl``, ``interaction_impl``, ``interaction_bwd_impl`` and
 ``precision``, when set, override the model config's fields of those names
-(as the JAX package's ``TrainerConfig`` does); ``Trainer.mace_cfg`` is the
-config the run uses.
+(as the JAX package's ``TrainerConfig`` does).  An ``"auto"`` impl is then
+resolved from the tuning table for this run's shape bucket and the
+trainer's platform (``kernels.autotune.resolve_mace_config``) before the
+``BinShape`` is built, so that the interaction decision's tile geometry
+becomes the collation's; the decisions are kept in
+``Trainer.autotune_decisions``.  ``Trainer.mace_cfg`` is the config the
+run uses.
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ from repro_torch.data.sampler import (
     HierarchicalBalancedSampler,
     SamplerState,
 )
+from repro_torch.kernels import autotune
 
 from .checkpoint import latest_step, read_meta, restore_checkpoint, save_checkpoint
 from .engine import make_engine
@@ -85,8 +91,9 @@ class TrainerConfig:
     block_e: int = 128
     fixed_graphs_per_batch: int = 8   # baseline sampler's PyG-style count
     # overrides of MaceConfig's kernel selection, when set: impl (the
-    # symmetric contraction), interaction_impl, interaction_bwd_impl ("cuda"
-    # | "fused") and precision ("fp32" | "bf16" | "fp8")
+    # symmetric contraction), interaction_impl (either may be "auto"),
+    # interaction_bwd_impl ("cuda" | "fused") and precision ("fp32" |
+    # "bf16" | "fp8")
     impl: Optional[str] = None
     interaction_impl: Optional[str] = None
     interaction_bwd_impl: Optional[str] = None
@@ -113,6 +120,15 @@ class Trainer:
             "impl", "interaction_impl", "interaction_bwd_impl", "precision")}
         mace_cfg = dataclasses.replace(
             mace_cfg, **{f: v for f, v in overrides.items() if v is not None})
+        # "auto" resolves for THIS run's shape bucket before the BinShape is
+        # built, so that the interaction decision's tile geometry flows into
+        # the collation (the block_n check below holds by construction)
+        mace_cfg, self.autotune_decisions = autotune.resolve_mace_config(
+            mace_cfg, capacity=tcfg.capacity, edge_factor=tcfg.edge_factor,
+            platform=autotune.platform_of(self.device))
+        d = self.autotune_decisions.get("interaction")
+        if d is not None and d.block_n is not None:
+            tcfg = dataclasses.replace(tcfg, block_n=int(d.block_n), block_e=int(d.block_e))
         self.mace_cfg = mace_cfg
         self.tcfg = tcfg
         self.dataset = dataset

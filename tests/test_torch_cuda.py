@@ -575,3 +575,55 @@ def test_closed_engine_releases_its_graphs(dev):
     engine.close()
     assert engine.compile_census() == {}
     assert torch.cuda.memory_reserved() <= held - sum(pools.values())
+
+
+# ---------------------------------------------------------------------------
+# the autotuner's timing harness on the card
+# ---------------------------------------------------------------------------
+
+# the 256-atom serving bucket at the paper's width (edge_factor 48)
+HARNESS_SHAPES = {"symcon": dict(N=256, k=128, nu=2), "channelwise_tp": dict(E=12288, k=128),
+                  "interaction": dict(E=12288, N=256, k=128)}
+
+
+@pytest.mark.parametrize("kind", sorted(HARNESS_SHAPES))
+def test_time_impl_times_the_cuda_kernels_on_the_card(dev, kind):
+    """CUDA-event timings of the cuda impl, forward and forward + first
+    backward (both backwards of the interaction), all positive; the
+    kernels launched in the timed calls."""
+    from repro_torch.kernels import bench as bk
+
+    kernels = ((sck.SYMCON_FWD, sck.SYMCON_BWD) if kind == "symcon"
+               else (tpk.TP_SCATTER_FWD, tpk.TP_GATHER_BWD))
+    before = [kern.launches for kern in kernels]
+    rows = bk.time_impl(kind, "cuda", grad=True, repeats=5, **HARNESS_SHAPES[kind])
+    torch.cuda.synchronize()
+    assert len(rows) == (3 if kind == "interaction" else 2)
+    assert all(r["us"] > 0 and "failed" not in r for r in rows), rows
+    assert all(kern.launches > n for kern, n in zip(kernels, before))
+
+
+def test_out_of_memory_candidate_is_recorded_and_skipped_by_decide(dev):
+    """Capped at 4 GiB, the fused interaction at the training bin's shape
+    (inputs about 0.8 GiB, each [E, k, nnz] intermediate 6 GiB) runs out of
+    memory: its rows carry no time and ``failed``, and ``decide`` picks
+    among the measured ones."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import bench as bk
+
+    shape = dict(E=147456, N=3072, k=128)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(4 * 2**30 / total)
+    try:
+        failed = bk.time_impl("interaction", "fused", grad=True, repeats=2, **shape)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    assert all(r["us"] is None and r["failed"] == bk.OOM for r in failed), failed
+    measured = bk.time_impl("interaction", "cuda", grad=True, repeats=2, block_n=32,
+                            block_e=128, **shape)
+    run = {"backend": "gpu", "rows": failed + measured}
+    d = at.decide("interaction", shape, "gpu", "fwd_bwd", runs=[run],
+                  block_candidates=[(32, 128)])
+    assert (d.impl, d.source) == ("cuda", "measured")

@@ -41,7 +41,11 @@ def test_port_modules_import_no_jax_and_no_repro():
             "repro_torch.launch.train", "repro_torch.launch.pack_and_balance",
             "repro_torch.launch.bench_distribution", "repro_torch.launch.train_mace_cfm",
             "repro_torch.launch.grad_determinism", "repro_torch.launch.serve_mace",
-            "repro_torch.resilience", "repro_torch.resilience.faults"]
+            "repro_torch.resilience", "repro_torch.resilience.faults",
+            "repro_torch.kernels.autotune", "repro_torch.kernels.bench",
+            "repro_torch.launch.bench_kernels",
+            "repro_torch.roofline", "repro_torch.roofline.analysis",
+            "repro_torch.roofline.analytic"]
     proc = _run("".join(f"import {m}\n" for m in mods) + _FORBIDDEN_CHECK)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

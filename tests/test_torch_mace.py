@@ -88,7 +88,9 @@ def test_port_init_has_jax_keys_and_shapes():
 def test_port_config_has_the_jax_config_widths():
     ours = {f.name: getattr(TCONFIG, f.name) for f in dataclasses.fields(TCONFIG)}
     theirs = {f.name: getattr(JCONFIG, f.name) for f in dataclasses.fields(JCONFIG)}
-    assert ours.keys() - theirs.keys() == set()
+    # the one JAX-only field is the dtype, which stays at float32 there
+    assert theirs.keys() - ours.keys() == {"dtype"} and ours.keys() <= theirs.keys()
+    assert np.dtype(theirs["dtype"]) == np.float32
     for name in ours.keys() - {"impl", "interaction_impl", "interaction_bwd_impl"}:
         assert ours[name] == theirs[name], name
     # the backward knob under the port's names
@@ -96,10 +98,18 @@ def test_port_config_has_the_jax_config_widths():
 
 
 def test_config_refuses_auto_until_the_autotuner_is_ported():
-    with pytest.raises(NotImplementedError):
-        TConfig(impl="auto")
-    with pytest.raises(NotImplementedError):
-        TConfig(interaction_impl="auto")
+    """With the autotuner ported, ``"auto"`` is refused only where the JAX
+    config refuses it: a raw forward resolving ``impl="auto"``; a raw
+    ``interaction_impl="auto"`` follows ``impl``."""
+    from repro_torch.kernels.registry import resolve
+
+    cfg, jcfg = TConfig(impl="auto"), JConfig(impl="auto")
+    assert cfg.symcon_impl_name == jcfg.symcon_impl_name == "auto"
+    with pytest.raises(KeyError, match="auto"):
+        resolve("symcon", cfg.symcon_impl_name, cfg.symcon_spec())
+    for impl in ("fused", "ref"):
+        assert (TConfig(impl=impl, interaction_impl="auto").interaction_impl_name
+                == JConfig(impl=impl, interaction_impl="auto").interaction_impl_name == impl)
 
 
 def test_energy_forces_match_jax_pallas():

@@ -475,9 +475,10 @@ def test_mace_config_precision_resolution():
     assert cfg3.symcon_impl_name == "fused" and cfg3.interaction_impl_name == "fused"
     assert cfg3.interaction_spec_at(0).precision == "fp32"
     assert cfg3.interaction_spec_at(1).bwd_impl == "cuda"
-    # "auto" waits for the autotuner (the reference defers it there)
-    with pytest.raises(NotImplementedError):
-        MaceConfig(**TINY_KW, impl="auto", precision="bf16")
+    # "auto" is left for the build paths to resolve, as in the reference
+    cfg4 = MaceConfig(**TINY_KW, impl="auto", precision="bf16")
+    assert cfg4.symcon_impl_name == JConfig(**TINY_KW, impl="auto",
+                                            precision="bf16").symcon_impl_name == "auto"
     cfg5 = MaceConfig(**TINY_KW, impl="fused", precision="bf16")
     with pytest.raises(ValueError, match="no 'bf16' variant"):
         cfg5.symcon_impl_name

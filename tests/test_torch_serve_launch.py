@@ -38,10 +38,15 @@ def test_serve_mace_on_the_cpu_survives_a_worker_fault(drill):
 
 
 def test_serve_mace_refuses_auto_until_the_autotuner_is_ported():
+    """With the autotuner ported, ``--interaction-impl auto`` (the default,
+    as in the JAX example) resolves from the tuning table, prints the
+    decision and serves every request."""
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve_mace", "--device", "cpu",
-         "--interaction-impl", "auto"],
-        cwd=REPO, capture_output=True, text=True, timeout=120,
+         "--interaction-impl", "auto", "--requests", "12"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
         env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
-    assert proc.returncode != 0
-    assert "needs the autotuner" in proc.stderr
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("autotune: "))
+    assert line.startswith("autotune: interaction[") and ",cpu,fwd_bwd] -> " in line
+    assert proc.stdout.rstrip().endswith("OK")

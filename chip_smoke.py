@@ -128,16 +128,43 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    bucket's graph replay on one real bin of the 48 molecules (the two
    within ``KERNEL_TOL``), and training steps on the same 3,072-atom bins
    at each geometry the two paths resolve to (not held: a measurement);
-11. report: the card's name and power limit, one JSON line of kernel
+11. elastic and supervised training, at the paper's width and capacity
+   3,072 (``edge_factor`` 48) over phase 4's dataset: (a) an
+   ``ElasticTrainer`` on the sequential engine at R = 2, prefetch 1, a
+   checkpoint every step, rescaled to R = 1 after step 2, 4 steps: per
+   step the CUDA-event ms, atoms/s, loss and launches (2/4/2/4 per bin),
+   the rescale event and the merged telemetry of its 2 generations; no
+   graph taken twice, every one from epoch 0; the checkpoints of steps 2
+   and 4 record R and the lineage; (b) restart equivalence, three
+   processes at once under phase 9's deterministic settings: the
+   uninterrupted run of (a); drill A, killed by ``REPRO_FAULT_PLAN``
+   ``crash_at_step`` after step 4 (before its checkpoint), then a trainer
+   at R = 1 with ``elastic`` restores step 3 and takes step 4; drill B, 2
+   steps at R = 2, then a trainer at R = 1 with ``elastic`` restores across
+   rank counts and takes steps 3-4; each drill's losses within rtol 1e-5
+   of the uninterrupted run's, its final parameters, optimizer state and
+   EMA within the JAX engine bounds where Adam stayed well conditioned
+   (the rest counted); (c) the supervised drills:
+   ``python -m repro_torch.launch.train --distributed --supervised
+   --nprocs 2 --steps 4 --ckpt-every 1`` (the paper's config at capacity
+   3,072, two gloo ranks on the card) with process 1 crashing after step
+   2, and with process 0 hung in collation at step 2 under a step deadline
+   of 10 times (a)'s slowest warm step (at least 20 s): each exits 0 with the
+   incidents crash (or hang), relaunch at world size 1, recovered,
+   success, its final checkpoint step 4 at one rank by one process, and
+   the relaunched rank's launches 2/4/2/4 per step; ``detection_s``,
+   ``recovery_s``, ``steps_lost`` and each attempt's wall time printed;
+12. report: the card's name and power limit, one JSON line of kernel
    numbers (each kernel at each precision, and the identity-blocked
    interaction kernels; the fp32 entries also carry the data-parallel
-   runs' launches and the autotune phase's), and last a JSON line with
-   ``"ok": true``.
+   runs' launches, the autotune phase's and the elastic phase's), and
+   last a JSON line with ``"ok": true``.
 
 Without a CUDA device it exits with code 2 before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import itertools
@@ -152,7 +179,8 @@ import tempfile
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+SRC_DIR = Path(__file__).resolve().parent / "src"
+sys.path.insert(0, str(SRC_DIR))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -185,11 +213,12 @@ from repro_torch.serve import (  # noqa: E402
     make_serve_engine,
     select_bucket,
 )
-from repro_torch.train.checkpoint import flatten_state  # noqa: E402
-from repro_torch.train.engine import make_engine  # noqa: E402
+from repro_torch.resilience import ENV_FAULT_PLAN, SimulatedCrash  # noqa: E402
+from repro_torch.train.checkpoint import flatten_state, latest_step, read_meta  # noqa: E402
+from repro_torch.train.engine import MergedTelemetry, SequentialEngine, make_engine  # noqa: E402
 from repro_torch.train.optimizer import adamw, apply_updates  # noqa: E402
 from repro_torch.train.optimizer import tree_map as opt_tree_map  # noqa: E402
-from repro_torch.train.train_loop import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.train.train_loop import ElasticTrainer, Trainer, TrainerConfig  # noqa: E402
 
 HBM_BYTES_PER_S = HW().hbm_bw       # H100 SXM device memory
 FP32_FLOPS = HW().peak_flops_fp32   # H100 SXM fp32 outside the tensor cores
@@ -1597,21 +1626,7 @@ def _hold_against_oracle(name, ranks, det, oracle, compress, card):
               f"{loss_err:.3e}, tol {DP_LOSS_RTOL:g}); card {card}", flush=True)
         if loss_err > DP_LOSS_RTOL or any(b for b, _, _ in steps):
             raise AssertionError(f"{label} differs from the sequential oracle")
-    state0 = det[0][1]
-    n = dict(held=0, over=0, free=0, free_over=0, bitwise=0, all=0)
-    for k, w in want.items():
-        if k.startswith("ef/"):
-            continue
-        # params/<p>, ema/<p>, opt_state/#<i>/<m|v>/<p>: the mask of <p>
-        parts = k.split("/")
-        mask = held["/".join(parts[3:] if parts[0] == "opt_state" else parts[1:])]
-        over = np.abs(state0[k] - w) - atol - rtol * np.abs(w) > 0
-        n["held"] += int(mask.sum())
-        n["over"] += int((over & mask).sum())
-        n["free"] += int((~mask).sum())
-        n["free_over"] += int((over & ~mask).sum())
-        n["bitwise"] += int((state0[k] == w).sum())
-        n["all"] += w.size
+    n = _count_against_oracle(det[0][1], want, held, rtol, atol)
     print(f"{name}_deterministic free running against the sequential oracle at "
           f"R={len(det)}: parameters, optimizer state, EMA: {n['over']} of {n['held']} "
           f"held beyond rtol {rtol:g} / atol {atol:g}; {n['free']} not held (where "
@@ -1620,6 +1635,31 @@ def _hold_against_oracle(name, ranks, det, oracle, compress, card):
           f"{card}", flush=True)
     if n["over"]:
         raise AssertionError(f"{name}_deterministic differs from the sequential oracle")
+
+
+def _count_against_oracle(state, want, held, rtol, atol):
+    """Counts of a free-running final state against the oracle's, over
+    parameters, optimizer state and EMA (not the residuals): elements
+    beyond rtol / atol where the oracle's Adam stayed well conditioned
+    (``held``, per parameter) and where it did not, bit-identical ones, and
+    the largest difference."""
+    n = dict(held=0, over=0, free=0, free_over=0, bitwise=0, all=0, worst=0.0)
+    for k, w in want.items():
+        if k.startswith("ef/"):
+            continue
+        # params/<p>, ema/<p>, opt_state/#<i>/<m|v>/<p>: the mask of <p>
+        parts = k.split("/")
+        mask = held["/".join(parts[3:] if parts[0] == "opt_state" else parts[1:])]
+        diff = np.abs(state[k] - w)
+        over = diff - atol - rtol * np.abs(w) > 0
+        n["held"] += int(mask.sum())
+        n["over"] += int((over & mask).sum())
+        n["free"] += int((~mask).sum())
+        n["free_over"] += int((over & ~mask).sum())
+        n["bitwise"] += int((state[k] == w).sum())
+        n["all"] += w.size
+        n["worst"] = max(n["worst"], float(diff.max(initial=0.0)))
+    return n
 
 
 def _report_ranks(name, ranks, card):
@@ -1925,6 +1965,375 @@ def compare_geometries(params, mols, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: elastic and supervised training
+# ---------------------------------------------------------------------------
+
+ELASTIC_R = 2
+ELASTIC_SCHEDULE = {2: 1}   # after step 2, R = 2 -> 1
+ELASTIC_STEPS = 4
+ELASTIC_DEADLINE_S = 300    # each child process of (b), start to exit
+SUPERVISED_DEADLINE_S = 420  # each supervised pod, start to exit
+# the step watchdog of the hang drill: this many times (a)'s slowest warm
+# step (after each generation's first), and no less than the floor (a cold
+# child's first step builds its cuBLAS handles and loads the kernel
+# libraries, and the watchdog spans it too)
+DEADLINE_STEPS, DEADLINE_FLOOR_S = 10, 20.0
+
+
+def _elastic_trainer(ckpt_dir, n_ranks=ELASTIC_R, schedule=None, elastic=False):
+    """Phase 4's trainer (the paper's width at capacity 3,072, prefetch 1,
+    ``SEED``'s weights) on the ``sequential`` engine at ``n_ranks`` logical
+    ranks, checkpointing every step; an ``ElasticTrainer`` when given a
+    ``schedule``."""
+    tcfg = TrainerConfig(capacity=TRAIN_ATOMS, edge_factor=EDGE_FACTOR,
+                         max_graphs=max(16, TRAIN_ATOMS // 8), prefetch=1,
+                         n_ranks=n_ranks, ckpt_dir=ckpt_dir, ckpt_every=1, elastic=elastic)
+    dataset = SyntheticCFMDataset(TRAIN_GRAPHS, seed=SEED, max_atoms=max(CAPACITIES))
+    if schedule:
+        return ElasticTrainer(CONFIG, tcfg, dataset, rescale_schedule=schedule, seed=SEED)
+    return Trainer(CONFIG, tcfg, dataset, seed=SEED)
+
+
+@contextlib.contextmanager
+def _timed_sequential_steps(rows):
+    """Time every ``SequentialEngine.step`` (the engines a rescale builds
+    too) by CUDA events, with its atoms, ranks and each kernel's launches."""
+    step = SequentialEngine.step
+
+    def timed(self, params, opt_state, ef_state, batches, global_step):
+        before = _launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(self, params, opt_state, ef_state, batches, global_step)
+        end.record()
+        torch.cuda.synchronize()
+        after = _launches()
+        rows.append(dict(ms=start.elapsed_time(end), n_ranks=len(batches),
+                         atoms=sum(float(b["node_mask"].sum()) for b in batches),
+                         launches={k: after[k] - before[k] for k in after},
+                         denominator=_adam_denominator(out[1], global_step)))
+        return out
+
+    SequentialEngine.step = timed
+    try:
+        yield
+    finally:
+        SequentialEngine.step = step
+
+
+def _check_step_launches(label, rows):
+    """Each step's launches: ``PER_BIN`` per bin of the step."""
+    for i, r in enumerate(rows):
+        want = {k: n * r["n_ranks"] for k, n in PER_BIN.items()}
+        if r["launches"] != want:
+            raise AssertionError(f"{label} step {i + 1} at R={r['n_ranks']} launched "
+                                 f"{r['launches']}, expected {want}")
+
+
+def elastic_in_process(card):
+    """Phase 11 (a): an ``ElasticTrainer`` at R = 2 rescaled to R = 1 after
+    step 2, 4 steps, in this process.  Printed per step: CUDA-event ms,
+    atoms/s, loss, launches (``PER_BIN`` per bin); the rescale event; the
+    merged telemetry.  Held: every loss finite; no graph taken twice and
+    every one from epoch 0's packing, each step's atoms those of its bins;
+    the checkpoints of steps 2 and 4 record R and the lineage.  Returns
+    the launches and the slowest warm step's ms (after each generation's
+    first, which pays the engine's set-up)."""
+    rows = []
+    with tempfile.TemporaryDirectory() as d:
+        tr = _elastic_trainer(d, schedule=dict(ELASTIC_SCHEDULE))
+        first = tr.sampler
+        _reset_launches()
+        with _timed_sequential_steps(rows):
+            hist = tr.train(n_epochs=1, max_steps=ELASTIC_STEPS)["history"]
+        torch.cuda.synchronize()
+        launches = _launches()
+        metas = {s: read_meta(d, step=s)[1] for s in (2, ELASTIC_STEPS)}
+    for i, (h, r) in enumerate(zip(hist, rows)):
+        print(f"elastic step {i + 1}: R={r['n_ranks']} loss={h['loss']:.6f} "
+              f"step_ms={r['ms']:.2f} atoms={r['atoms']:.0f} "
+              f"atoms_per_s={r['atoms'] / r['ms'] * 1e3:.1f} launches={r['launches']}; "
+              f"card {card}", flush=True)
+    (ev,) = tr.rescale_events
+    print(f"elastic rescale @step {ev['step']}: from_ranks={ev['from_ranks']} "
+          f"to_ranks={ev['to_ranks']} repack_s={ev['repack_s']:.6f} "
+          f"rebuild_s={ev['rebuild_s']:.6f} discarded_batches={ev['discarded_batches']}",
+          flush=True)
+    tel = tr.telemetry
+    if not isinstance(tel, MergedTelemetry) or tel.n_generations != 2:
+        raise AssertionError(f"expected the merged telemetry of 2 generations, got {tel}")
+    print(f"elastic telemetry: {tel.n_generations} generations, steps "
+          f"{[g.n_steps for g in tel.generations]}, ranks "
+          f"{[g.n_ranks for g in tel.generations]}, c_token={tel.c_token():.4e} s/atom, "
+          f"measured straggler {tel.measured_straggler():.4f}, rescale (repack, rebuild) "
+          f"{tel.rescale_seconds()} s, collate hidden {tel.overlap_seconds():.4f} s",
+          flush=True)
+    if len(hist) != ELASTIC_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"the elastic run did not take {ELASTIC_STEPS} finite steps")
+    if [r["n_ranks"] for r in rows] != [2, 2, 1, 1]:
+        raise AssertionError(f"ranks per step {[r['n_ranks'] for r in rows]}")
+    _check_step_launches("elastic", rows)
+    # the graphs taken: the R = 2 packing's first 2 steps, then the first 2
+    # steps of the remainder packed at R = 1
+    bins = (first.bins_for_epoch(0)[:2 * ELASTIC_R]
+            + tr.sampler.bins_for_epoch(0)[:ELASTIC_STEPS - 2])
+    taken = [i for b in bins for i in b]
+    epoch0 = {i for b in first.bins_for_epoch(0) for i in b}
+    if len(set(taken)) != len(taken) or not set(taken) <= epoch0:
+        raise AssertionError("the elastic run took a graph twice or outside epoch 0")
+    sizes = tr.dataset.sizes
+    per_step = [bins[0] + bins[1], bins[2] + bins[3], bins[4], bins[5]]
+    if [float(sizes[s].sum()) for s in per_step] != [r["atoms"] for r in rows]:
+        raise AssertionError("a step's atoms are not those of its bins")
+    want = {2: (2, []), ELASTIC_STEPS: (1, [{"n_ranks": 2, "cursor": 2}])}
+    for s, (n_ranks, lineage) in want.items():
+        if (metas[s]["n_ranks"], metas[s]["lineage"]) != (n_ranks, lineage):
+            raise AssertionError(f"checkpoint {s}: n_ranks {metas[s]['n_ranks']}, lineage "
+                                 f"{metas[s]['lineage']}; expected {n_ranks}, {lineage}")
+    print(f"elastic: {len(taken)} graphs, none twice; checkpoints step 2 {metas[2]['n_ranks']} "
+          f"ranks lineage {metas[2]['lineage']}, step {ELASTIC_STEPS} "
+          f"{metas[ELASTIC_STEPS]['n_ranks']} rank lineage {metas[ELASTIC_STEPS]['lineage']}; "
+          f"launches {launches}", flush=True)
+    del tr
+    warm = [r["ms"] for i, r in enumerate(rows) if i and r["n_ranks"] == rows[i - 1]["n_ranks"]]
+    return launches, max(warm)
+
+
+def elastic_run(cfg) -> int:
+    """One process of phase 11 (``chip_smoke.py --elastic-run CFG``), under
+    phase 9's deterministic settings: ``oracle`` (the uninterrupted run of
+    (a)), ``crash`` (drill A: killed by ``crash_at_step`` after step 4,
+    before its checkpoint; a trainer at R = 1 with ``elastic`` restores
+    step 3's and takes step 4), ``restart`` (drill B: 2 steps at R = 2, then
+    a trainer at R = 1 with ``elastic`` restores across rank counts and
+    takes steps 3-4).  Writes its record (``run.json``)
+    and final state (``state.npz``, and ``held.npz``: where Adam's
+    denominator stayed 0 or above ``ADAM_HELD_EPS`` eps at every step)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    torch.autograd.set_multithreading_enabled(False)
+    out, mode = Path(cfg["out"]), cfg["mode"]
+    d, rows, losses, record = str(out / "ckpt"), [], [], {}
+    _reset_launches()
+    with _timed_sequential_steps(rows):
+        if mode == "oracle":
+            tr = _elastic_trainer(d, schedule=dict(ELASTIC_SCHEDULE))
+            losses = [h["loss"] for h in tr.train(n_epochs=1, max_steps=ELASTIC_STEPS)["history"]]
+        elif mode == "crash":
+            os.environ[ENV_FAULT_PLAN] = json.dumps(
+                {"crash_at_step": {"step": ELASTIC_STEPS, "mode": "raise"}})
+            tr, history = _elastic_trainer(d, schedule=dict(ELASTIC_SCHEDULE)), []
+            try:
+                tr.run_epoch(history, max_steps=ELASTIC_STEPS)
+            except SimulatedCrash as exc:
+                record["crash"] = str(exc)
+            else:
+                raise AssertionError("crash_at_step did not fire")
+            del os.environ[ENV_FAULT_PLAN]
+            del tr
+            record["newest_checkpoint"] = latest_step(d)
+            tr = _elastic_trainer(d, n_ranks=1, elastic=True)
+            if not tr.maybe_restore():
+                raise AssertionError("drill A found no checkpoint")
+            record["restored"] = [tr.global_step, tr._lineage]
+            losses = [h["loss"] for h in history[:tr.global_step]]
+            losses += [h["loss"] for h in tr.train(n_epochs=1, max_steps=ELASTIC_STEPS)["history"]]
+        else:
+            first = _elastic_trainer(d)
+            losses = [h["loss"] for h in first.train(n_epochs=1, max_steps=2)["history"]]
+            del first
+            tr = _elastic_trainer(d, n_ranks=1, elastic=True)
+            if not tr.maybe_restore():
+                raise AssertionError("drill B found no checkpoint")
+            record["restored"] = [tr.global_step, tr._lineage]
+            losses += [h["loss"] for h in tr.train(n_epochs=1, max_steps=ELASTIC_STEPS)["history"]]
+    torch.cuda.synchronize()
+    held = None
+    for r in rows:
+        ok = {k: (v == 0) | (v > ADAM_HELD_EPS * ADAM_EPS) for k, v in r.pop("denominator").items()}
+        held = ok if held is None else {k: held[k] & ok[k] for k in held}
+    np.savez(out / "state.npz", **{k: v.cpu().numpy() for k, v in flatten_state(
+        {"params": tr.params, "opt_state": tr.opt_state, "ema": tr.ema_params}).items()})
+    np.savez(out / "held.npz", **{k: v.cpu().numpy() for k, v in held.items()})
+    (out / "run.json").write_text(json.dumps(dict(
+        record, losses=losses, rows=rows, launches=_launches(),
+        final=[tr.global_step, tr.engine.n_ranks, read_meta(d)[1]["lineage"]])))
+    return 0
+
+
+def _spawn_elastic(root, mode):
+    """Start ``elastic_run`` in a process of its own; returns (mode, out,
+    its group)."""
+    out = Path(root) / mode
+    out.mkdir()
+    group = spawn_local(1, [sys.executable, str(Path(__file__).resolve()), "--elastic-run",
+                            json.dumps(dict(mode=mode, out=str(out)))],
+                        env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}, log_dir=str(out / "logs"))
+    return mode, out, group
+
+
+def _wait_elastic(mode, out, group):
+    """Wait for an ``elastic_run`` process; its record, or its log on
+    failure."""
+    codes = group.wait(timeout=ELASTIC_DEADLINE_S)
+    if codes != [0]:
+        print(f"elastic {mode} log tail:\n{Path(group.procs[0].log_path).read_text()[-4000:]}",
+              flush=True)
+        raise AssertionError(f"elastic {mode}: the process exited {codes}")
+    return json.loads((out / "run.json").read_text())
+
+
+def restart_equivalence(card):
+    """Phase 11 (b): the oracle, drill A and drill B, each a process under
+    the deterministic settings, all three at once.  Each drill against the
+    oracle: losses within ``DP_LOSS_RTOL``, final parameters, optimizer
+    state and EMA within the JAX engine bounds wherever the oracle's Adam
+    stayed well conditioned (the rest counted).  Returns each run's
+    launches."""
+    torch.cuda.empty_cache()  # the parent's cached blocks, for the children
+    rtol, atol = DP_PARAM_TOL[False]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        started = [_spawn_elastic(root, mode) for mode in ("oracle", "crash", "restart")]
+        runs = {mode: (_wait_elastic(mode, out, group), dict(np.load(out / "state.npz")),
+                       dict(np.load(out / "held.npz")))
+                for mode, out, group in started}
+    print(f"elastic restarts: 3 processes done in {time.perf_counter() - t0:.1f}s", flush=True)
+    oracle, want, held = runs["oracle"]
+    launches = {}
+    for mode, (info, state, _) in runs.items():
+        _check_step_launches(f"elastic {mode}", info["rows"])
+        launches[mode] = info["launches"]
+        if not all(n > 0 for n in info["launches"].values()):
+            raise AssertionError(f"elastic {mode} launched no {info['launches']}")
+        if info["final"] != [ELASTIC_STEPS, 1, [{"n_ranks": 2, "cursor": 2}]]:
+            raise AssertionError(f"elastic {mode} ended at (step, R, lineage) {info['final']}")
+        if mode == "oracle":
+            continue
+        restored = [3, [{"n_ranks": 2, "cursor": 2}]] if mode == "crash" else [
+            2, [{"n_ranks": 2, "cursor": 2}]]
+        if info["restored"] != restored or (mode == "crash" and info["newest_checkpoint"] != 3):
+            raise AssertionError(f"elastic {mode} restored {info['restored']}")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(info["losses"], oracle["losses"]))
+        n = _count_against_oracle(state, want, held, rtol, atol)
+        label = {"crash": "drill A (crash after step 4, restore step 3 at R=1)",
+                 "restart": "drill B (2 steps at R=2, restore at R=1)"}[mode]
+        print(f"elastic {label}: losses {info['losses']} vs the oracle's {oracle['losses']} "
+              f"(max rel {loss_err:.3e}, tol {DP_LOSS_RTOL:g}); parameters, optimizer "
+              f"state, EMA: {n['over']} of {n['held']} held beyond rtol {rtol:g} / atol "
+              f"{atol:g}, {n['free']} not held ({n['free_over']} of them beyond), largest "
+              f"difference {n['worst']:.3e}, {n['bitwise']} of {n['all']} bit-identical; "
+              f"step_ms {[round(r['ms'], 2) for r in info['rows']]}; card {card}", flush=True)
+        if loss_err > DP_LOSS_RTOL or n["over"] or len(info["losses"]) != ELASTIC_STEPS:
+            raise AssertionError(f"elastic {mode} differs from the uninterrupted oracle")
+    return launches
+
+
+def _supervised(root, name, plan, extra=()):
+    """``launch.train --distributed --supervised --nprocs 2`` at the paper's
+    config (capacity 3,072) on the card, with ``plan`` in
+    ``REPRO_FAULT_PLAN``; returns (incidents, final meta, the relaunched
+    trainer's kernel launches, seconds from start to each incident)."""
+    ckpt = Path(root) / name
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--distributed", "--supervised",
+           "--nprocs", "2", "--steps", str(ELASTIC_STEPS), "--ckpt-every", "1",
+           "--ckpt-dir", str(ckpt), *extra]
+    env = dict(os.environ, REPRO_FAULT_PLAN=json.dumps(plan),
+               PYTHONPATH=str(SRC_DIR))
+    t0 = time.time()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=SUPERVISED_DEADLINE_S)
+    logs = sorted((ckpt / "supervisor" / "logs").glob("*/*.log"))
+    if proc.returncode != 0:
+        tails = "".join(f"{p}:\n{p.read_text()[-3000:]}\n" for p in logs)
+        raise AssertionError(f"supervised {name} exited {proc.returncode}:\n{proc.stdout}"
+                             f"{proc.stderr}\n{tails}")
+    incidents = [json.loads(line) for line in
+                 (ckpt / "supervisor" / "incidents.jsonl").read_text().splitlines() if line]
+    relaunched = "".join(p.read_text() for p in logs if p.parent.name == "attempt1")
+    launches = [json.loads(line.split("kernel launches: ", 1)[1])
+                for line in relaunched.splitlines() if line.startswith("kernel launches: ")]
+    resumed = [int(n) for n in re.findall(r"^resumed at step (\d+)$", relaunched, re.M)]
+    return incidents, read_meta(str(ckpt))[1], launches, resumed, t0
+
+
+def supervised_drills(card, warm_step_ms):
+    """Phase 11 (c): the crash drill (process 1 exits 43 after step 2) and
+    the hang drill (process 0 hangs in collation at step 2, its step
+    watchdog exits 44), each a supervised pod of 2 gloo ranks on the card.
+    Held: exit 0; the incidents crash (or hang), relaunch at world 1,
+    recovered, success; the final checkpoint step 4 at 1 rank by 1
+    process; the relaunched rank's launches ``PER_BIN`` per step.
+    Printed: detection_s (for the hang, as the deadline plus the
+    overshoot), recovery_s, steps_lost, each attempt's wall time.  Returns
+    each drill's relaunched launches."""
+    deadline = round(max(DEADLINE_FLOOR_S, DEADLINE_STEPS * warm_step_ms / 1e3), 1)
+    print(f"supervised: the hang drill's step deadline is {deadline:.1f} s: "
+          f"{DEADLINE_STEPS} x the slowest warm step of (a) ({warm_step_ms:.1f} ms), "
+          f"at least {DEADLINE_FLOOR_S:g} s", flush=True)
+    torch.cuda.empty_cache()
+    drills = {"crash": ({"crash_at_step": {"step": 2, "process": 1}}, (), "crash", 43),
+              "hang": ({"hang_at_step": {"step": 2, "process": 0}},
+                       ("--step-deadline-s", f"{deadline:.1f}"), "hang", 44)}
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, (plan, extra, kind, code) in drills.items():
+            incidents, meta, counts, resumed, t0 = _supervised(root, name, plan, extra)
+            # attempt 0's incidents: the fault, and any peer that the same
+            # poll found dead or stalled too (both watchdogs of a hang fire)
+            faults = [r for r in incidents if r["attempt"] == 0]
+            kinds = [r["kind"] for r in incidents]
+            fault = faults[0] if faults else None
+            if (not faults or {r["kind"] for r in faults} - {"crash", "hang"}
+                    or kinds[len(faults):] != ["relaunch", "recovered", "success"]
+                    or fault["kind"] != kind or code not in fault["exit_codes"]):
+                raise AssertionError(f"supervised {name}: incidents {incidents}")
+            relaunch, recovered, success = incidents[len(faults):]
+            if relaunch["world_size"] != 1:
+                raise AssertionError(f"supervised {name}: relaunched at {relaunch}")
+            if name == "crash" and (fault["process_index"], fault["exit_codes"][1]) != (1, 43):
+                raise AssertionError(f"supervised crash: {fault}")
+            if (meta["step"], meta["n_ranks"], meta["process_count"]) != (ELASTIC_STEPS, 1, 1):
+                raise AssertionError(f"supervised {name}: final checkpoint {meta}")
+            if len(counts) != 1 or len(resumed) != 1:
+                raise AssertionError(f"supervised {name}: the relaunch logged {counts}, "
+                                     f"resumed at {resumed}")
+            taken = ELASTIC_STEPS - resumed[0]
+            if counts[0] != {k: n * taken for k, n in PER_BIN.items()}:
+                raise AssertionError(f"supervised {name}: the relaunch launched {counts[0]} "
+                                     f"in {taken} steps")
+            launches[name] = counts[0]
+            detection = f"{fault['detection_s']:.3f}"
+            if name == "hang":
+                detection += (f" (the deadline {deadline:.1f} + overshoot "
+                              f"{fault['detection_s'] - deadline:.3f})")
+            print(f"supervised {name}: {'; '.join(r['detail'] for r in faults)}; detection_s="
+                  f"{detection} recovery_s={recovered['recovery_s']:.3f} "
+                  f"steps_lost={recovered['steps_lost']} first_beat_step="
+                  f"{recovered['first_beat_step']} resumed at step {resumed[0]}; attempt 0 "
+                  f"wall {fault['t'] - t0:.1f} s (start to the incident), attempt 1 wall "
+                  f"{success['t'] - relaunch['t']:.1f} s (relaunch to success); final "
+                  f"checkpoint step {meta['step']} n_ranks {meta['n_ranks']} process_count "
+                  f"{meta['process_count']} lineage {meta['lineage']}; relaunch launches "
+                  f"{counts[0]}; card {card}", flush=True)
+    return launches
+
+
+def elastic_phase(card):
+    """Phase 11: (a) the in-process rescale, (b) restart equivalence, (c)
+    the supervised drills.  Returns each part's launches."""
+    t0 = time.perf_counter()
+    launches, warm = elastic_in_process(card)
+    parts = {"in_process": launches}
+    parts.update({f"restart_{m}": n for m, n in restart_equivalence(card).items()})
+    parts.update({f"supervised_{m}": n
+                  for m, n in supervised_drills(card, warm).items()})
+    print(f"elastic phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    return parts
+
+
 def kernel_units():
     """(label, (source, header)) of the nine kernel libraries: the
     symmetric contraction's spec and both layers' tensor-product specs, each
@@ -1940,7 +2349,8 @@ def kernel_units():
 
 def kernel_entries(results, training, identity, launches, train, train_profile,
                    variant_launches, bf16_training_launches, identity_launches,
-                   dp_launches, serving_profile, graph_rows, autotune_launches):
+                   dp_launches, serving_profile, graph_rows, autotune_launches,
+                   elastic_launches):
     """The ``kernels`` JSON line: each kernel at fp32 (the serving run's
     launches, all of them through graph replays, with its launches per
     replay of each bucket's graph, the serving profile's launches recorded
@@ -1949,7 +2359,9 @@ def kernel_entries(results, training, identity, launches, train, train_profile,
     serving run at that precision; bf16 also the variant training run's),
     and the identity-blocked interaction kernels (the unblocked bin's
     launches).  The fp32 entries also carry the autotune phase's launches
-    (its "auto" training run and its "auto" server)."""
+    (its "auto" training run and its "auto" server) and the elastic phase's
+    (each part's run: the in-process rescale, the three restart runs, the
+    relaunched rank of each supervised drill)."""
     entries = []
     for name, spec in KERNELS.items():
         common = dict(route="cuda", source=spec["source"], replaces=spec["replaces"])
@@ -1982,7 +2394,8 @@ def kernel_entries(results, training, identity, launches, train, train_profile,
                                              for b, r in graph_rows.items()},
                     serving_device_launches_recorded=serving_profile[name][0],
                     serving_device_launches_made=serving_profile[name][1],
-                    autotune_launches={run: n[name] for run, n in autotune_launches.items()})
+                    autotune_launches={run: n[name] for run, n in autotune_launches.items()},
+                    elastic_launches={run: n[name] for run, n in elastic_launches.items()})
             elif p == "bf16":
                 entry.update(training_launches=bf16_training_launches[name])
             entries.append(entry)
@@ -2007,6 +2420,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--dp-rank"]:
         return dp_rank(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--elastic-run"]:
+        return elastic_run(json.loads(sys.argv[2]))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2065,13 +2480,14 @@ def main() -> int:
     print(f"geometry: {json.dumps(compare_geometries(params, mols, card))}", flush=True)
     print(f"autotune phase: {time.perf_counter() - t0:.1f}s, of which tuning "
           f"{tune_s:.1f}s", flush=True)
+    elastic_launches = elastic_phase(card)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernel_entries(
         kernel_results, training_results, identity_results, launches, train,
         train_profile, variant_launches, bf16_training_launches, identity_launches,
-        dp_launches, serving_profile, graph_rows, autotune_launches)}))
+        dp_launches, serving_profile, graph_rows, autotune_launches, elastic_launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

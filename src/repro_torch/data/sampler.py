@@ -12,15 +12,23 @@ cursor) is the resumable state a checkpoint stores, and ``step_iter``
 snapshots it eagerly so the prefetch producer can run ahead while the live
 state advances.
 
-Not ported: the elastic rescale (``_ElasticRescaleMixin``, ``with_ranks``,
-``rescale`` and the remainder universe they pack); it comes with the
-elastic trainer.  ``_universe_bins`` is the hook it will extend: here the
-universe of every epoch is the whole dataset.
+Elastic rescale: ``with_ranks`` re-packs for a new rank count (the bins are
+independent, so scaling up or down is a pure host-side operation), and
+``rescale`` performs the *mid-epoch* cursor remap.  ``SamplerState.cursor``
+counts steps at the sampler's own rank count, so ``rescale(R_new, state)``
+treats the first ``cursor * R_old`` bins of the epoch's packing as the
+consumed prefix, re-packs the remaining graph indices with the sampler's
+algorithm at ``R_new`` (an epoch-scoped *remainder universe*) and restarts
+at ``cursor=0`` inside that packing.  Consumed prefix + remainder stream ==
+every index exactly once, and that composes: a chain ``R0 -> R1 -> ... ->
+Rk`` within one epoch still covers the dataset exactly once.  The remainder
+universe applies only to the epoch it was made in; the next epoch packs the
+full dataset at the new rank count.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -56,21 +64,75 @@ def _step_slices(
 
 
 class _EpochSampler:
-    """Iteration shared by both samplers over ``bins_for_epoch``."""
+    """Iteration and elastic rescale shared by the samplers over
+    ``bins_for_epoch``.
+
+    ``_resume`` is ``None`` for a full-dataset packing, or ``(epoch,
+    remaining_indices)``: this sampler's packing for ``epoch`` covers
+    exactly ``remaining_indices`` (the graphs a pre-rescale sampler had not
+    yet consumed).  Any other epoch packs the full dataset.
+    """
 
     n_ranks: int
 
     sizes: np.ndarray
 
+    _resume: Optional[Tuple[int, Tuple[int, ...]]] = None
+
     def bins_for_epoch(self, epoch: int) -> List[List[int]]:
         raise NotImplementedError
 
+    def with_ranks(self, n_ranks: int) -> "_EpochSampler":
+        raise NotImplementedError
+
+    def _epoch_universe(self, epoch: int) -> Optional[np.ndarray]:
+        """Global indices this epoch's packing draws from (None = all)."""
+        if self._resume is not None and self._resume[0] == epoch:
+            return np.asarray(self._resume[1], np.int64)
+        return None
+
     def _universe_bins(self, epoch: int, pack) -> List[List[int]]:
-        """Pack this epoch's universe and return bins of global indices;
-        ``pack(sizes) -> Bins`` runs the sampler's algorithm.  The universe
-        is the whole dataset in every epoch (the JAX package's elastic
-        remainder universe is not ported)."""
-        return [list(b) for b in pack(self.sizes).bins]
+        """Pack this epoch's universe and return bins of *global* indices.
+
+        ``pack(sizes) -> Bins`` runs the sampler's packing algorithm; when
+        the epoch is a rescale remainder, it packs the remaining sizes and
+        the local bin entries are mapped back through the universe."""
+        sub = self._epoch_universe(epoch)
+        if sub is None:
+            return [list(b) for b in pack(self.sizes).bins]
+        return [[int(sub[i]) for i in b] for b in pack(self.sizes[sub]).bins]
+
+    def consumed_indices(self, state: SamplerState) -> List[int]:
+        """Graph indices consumed by the first ``state.cursor`` steps of
+        ``state.epoch``: the prefix a rescale treats as done."""
+        bins = self.bins_for_epoch(state.epoch)
+        prefix = bins[: state.cursor * self.n_ranks]
+        return sorted(i for b in prefix for i in b)
+
+    def rescale(
+        self, n_ranks: int, state: SamplerState
+    ) -> Tuple["_EpochSampler", SamplerState]:
+        """Mid-epoch elastic rescale: cursor remap by remainder re-packing.
+
+        Returns ``(sampler, state)`` where the new sampler's packing for
+        ``state.epoch`` covers exactly the graphs this sampler had *not*
+        consumed after ``state.cursor`` steps, re-packed at ``n_ranks``, and
+        the new state restarts at ``cursor=0`` inside it.  Later epochs pack
+        the full dataset at ``n_ranks``.
+        """
+        new = self.with_ranks(n_ranks)
+        if state.cursor <= 0:
+            # nothing of *this* packing consumed; inherit its universe
+            # (it may itself be a remainder from an earlier rescale)
+            new._resume = self._resume
+            return new, SamplerState(state.epoch, 0)
+        consumed = set(self.consumed_indices(state))
+        universe = self._epoch_universe(state.epoch)
+        if universe is None:
+            universe = np.arange(len(self.sizes), dtype=np.int64)
+        remaining = tuple(int(i) for i in universe if int(i) not in consumed)
+        new._resume = (state.epoch, remaining)
+        return new, SamplerState(state.epoch, 0)
 
     def steps_per_epoch(self, epoch: int = 0) -> int:
         return len(self.bins_for_epoch(epoch)) // self.n_ranks
@@ -109,6 +171,13 @@ class BalancedBatchSampler(_EpochSampler):
         self.shuffle_bins = shuffle_bins
         self._cache_epoch: Optional[int] = None
         self._cache: Optional[List[List[int]]] = None
+
+    def with_ranks(self, n_ranks: int) -> "BalancedBatchSampler":
+        """Elastic rescale at an epoch boundary: same data, new rank count,
+        full-dataset packing (mid-epoch, use :meth:`rescale`)."""
+        return BalancedBatchSampler(
+            self.sizes, self.capacity, n_ranks, self.seed, self.shuffle_bins
+        )
 
     def bins_for_epoch(self, epoch: int) -> List[List[int]]:
         if self._cache_epoch == epoch and self._cache is not None:
@@ -150,6 +219,11 @@ class HierarchicalBalancedSampler(BalancedBatchSampler):
     Epoch shuffling keeps both levels intact: step groups are permuted and
     rank assignment rotated by *whole nodes* (a raw bin rotation would tear
     a node's LPT group apart and undo the level-2 balance).
+
+    Elastic topology: ``with_ranks(R)`` keeps ``ranks_per_node`` when ``R``
+    divides by it (losing a host is ``n_nodes -> n_nodes - 1``) and
+    degrades to a flat single-level packing otherwise, so the rescale remap
+    chain composes across topology changes.
     """
 
     def __init__(
@@ -166,6 +240,18 @@ class HierarchicalBalancedSampler(BalancedBatchSampler):
         )
         self.n_nodes = n_nodes
         self.ranks_per_node = ranks_per_node
+
+    def with_ranks(self, n_ranks: int) -> "BalancedBatchSampler":
+        """Rescale to ``n_ranks`` ranks: hierarchical again when the node
+        width divides it, else a flat packing (documented degrade)."""
+        if n_ranks % self.ranks_per_node == 0:
+            return HierarchicalBalancedSampler(
+                self.sizes, self.capacity, n_ranks // self.ranks_per_node,
+                self.ranks_per_node, self.seed, self.shuffle_bins,
+            )
+        return BalancedBatchSampler(
+            self.sizes, self.capacity, n_ranks, self.seed, self.shuffle_bins
+        )
 
     def bins_for_epoch(self, epoch: int) -> List[List[int]]:
         if self._cache_epoch == epoch and self._cache is not None:
@@ -201,6 +287,12 @@ class FixedCountSampler(_EpochSampler):
         self.graphs_per_batch = graphs_per_batch
         self.n_ranks = n_ranks
         self.seed = seed
+
+    def with_ranks(self, n_ranks: int) -> "FixedCountSampler":
+        """Elastic rescale at an epoch boundary (mid-epoch: `rescale`)."""
+        return FixedCountSampler(
+            self.sizes, self.graphs_per_batch, n_ranks, self.seed
+        )
 
     def bins_for_epoch(self, epoch: int) -> List[List[int]]:
         return self._universe_bins(

@@ -17,9 +17,11 @@ Each rank takes its bin of the Algorithm-1 packing (two-level with
 (plain, or int8 with error feedback by ``--compress-grads``; flat, or node
 then device with ``--n-nodes``), steps AdamW on replicated parameters and
 checkpoints through the multi-process atomic commit; a restart with the
-same world size resumes.  A distributed run uses the ``data_parallel``
-engine, or ``multihost`` when ``--n-nodes`` is given, with one rank per
-process, unless ``--engine`` says otherwise.  The backend is ``nccl`` when
+same world size resumes, and one at another world size resumes with
+``--elastic`` (the epoch remainder re-packed for the new rank count, the
+error-feedback residuals re-initialised).  A distributed run uses the
+``data_parallel`` engine, or ``multihost`` when ``--n-nodes`` is given,
+with one rank per process, unless ``--engine`` says otherwise.  The backend is ``nccl`` when
 every rank has a card of its own and ``gloo`` otherwise (CPU ranks, or
 several ranks on one card); the choice is printed.
 
@@ -29,12 +31,28 @@ for this run's shape bucket and each decision is printed as an
 ``autotune:`` line; ``--impl`` overrides the config's contraction impl
 (``auto`` too).
 
-Not ported: the LM architectures (``--arch``), ``--supervised`` and
-``--elastic`` (the resilience and elastic slices).
+Supervised pods (``--distributed --supervised``): this process becomes a
+``resilience.PodSupervisor`` parent instead of a trainer.  It spawns
+``--nprocs`` copies of this same command (without ``--supervised``, with
+``--distributed --elastic``) as one process group, watches their exit codes
+and per-step heartbeats, and on a crash or a hang kills the group and
+relaunches it one process smaller from the newest committed checkpoint,
+within ``--max-restarts``.  A ``REPRO_FAULT_PLAN`` set on the parent arms
+the first attempt only.  ``--step-deadline-s`` arms each child's step
+watchdog (a hung step exits 44, which the supervisor records as a hang);
+``incidents.jsonl``, the heartbeats and the children's logs go to
+``--run-dir`` (default ``<ckpt-dir>/supervisor``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --distributed \
+        --supervised --nprocs 2 --device cpu --reduced --steps 4 \
+        --ckpt-every 1 --ckpt-dir run
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import sys
 
 
 def main(argv=None) -> int:
@@ -68,7 +86,30 @@ def main(argv=None) -> int:
     ap.add_argument("--interaction-impl", default="auto",
                     help="interaction impl, or 'auto' (the default, as the JAX "
                          "config's): resolved from the tuning table")
+    ap.add_argument("--elastic", action="store_true",
+                    help="allow restoring a checkpoint written at another "
+                         "rank or process count (implied for supervised "
+                         "relaunches)")
+    ap.add_argument("--supervised", action="store_true",
+                    help="run as a PodSupervisor parent: spawn --nprocs "
+                         "children of this command, watch heartbeats and "
+                         "exit codes, restart elastically on failure")
+    ap.add_argument("--nprocs", type=int, default=2,
+                    help="supervised pod world size (parent only)")
+    ap.add_argument("--max-restarts", type=int, default=3,
+                    help="supervisor restart budget before failing loudly")
+    ap.add_argument("--heartbeat-deadline-s", type=float, default=60.0,
+                    help="the supervisor declares a hang when a child's "
+                         "newest heartbeat is older than this")
+    ap.add_argument("--step-deadline-s", type=float, default=None,
+                    help="StepWatchdog deadline per training step (a hung "
+                         "step exits 44 for the supervisor)")
+    ap.add_argument("--run-dir", default=None,
+                    help="supervisor state dir (incidents.jsonl, heartbeats, "
+                         "child logs); default <ckpt-dir>/supervisor")
     args = ap.parse_args(argv)
+    if args.supervised:
+        return _supervise(args, sys.argv[1:] if argv is None else list(argv))
 
     import torch.distributed as dist
 
@@ -118,7 +159,8 @@ def main(argv=None) -> int:
     tcfg = TrainerConfig(capacity=cap, edge_factor=32, max_graphs=max(16, cap // 8),
                          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                          compress_grads=args.compress_grads, impl=args.impl,
-                         interaction_impl=args.interaction_impl, **extra)
+                         interaction_impl=args.interaction_impl, elastic=args.elastic,
+                         step_deadline_s=args.step_deadline_s, **extra)
     try:
         tr = Trainer(cfg, tcfg, ds, seed=0, device=device)
         for d in tr.autotune_decisions.values():
@@ -135,9 +177,55 @@ def main(argv=None) -> int:
         print(f"done: {len(hist)} steps, engine {tr.engine.name}, ranks "
               f"{tr.engine.n_ranks}{final}, measured straggler "
               f"{tel.measured_straggler(1 if tel.n_steps > 1 else 0):.3f}")
+        print(f"kernel launches: {json.dumps(kernel_launches())}", flush=True)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+    return 0
+
+
+def kernel_launches():
+    """Each CUDA kernel's launches in this process so far (0 on the CPU,
+    where the wrappers run their plain versions)."""
+    from repro_torch.kernels.channelwise_tp import kernel as tpk
+    from repro_torch.kernels.symmetric_contraction import kernel as sck
+
+    return {"symcon_fwd": sck.SYMCON_FWD.launches, "symcon_bwd": sck.SYMCON_BWD.launches,
+            "tp_scatter_fwd": tpk.TP_SCATTER_FWD.launches,
+            "tp_gather_bwd": tpk.TP_GATHER_BWD.launches}
+
+
+def _supervise(args, argv) -> int:
+    """The ``--supervised`` parent: a ``PodSupervisor`` over ``--nprocs``
+    children of this command."""
+    from repro_torch.resilience import FaultPlan, PodSupervisor, SupervisorConfig
+
+    if not args.ckpt_dir:
+        raise SystemExit("--supervised needs --ckpt-dir: a relaunched pod "
+                         "resumes from the newest checkpoint there")
+    # children run THIS command without --supervised, with --distributed
+    # and --elastic: a degraded relaunch restores across process counts
+    child = [sys.executable, "-m", "repro_torch.launch.train"] + [
+        a for a in argv if a != "--supervised"]
+    for needed in ("--distributed", "--elastic"):
+        if needed not in child:
+            child.append(needed)
+    run_dir = args.run_dir or os.path.join(args.ckpt_dir, "supervisor")
+    sup = PodSupervisor(
+        child,
+        SupervisorConfig(n_procs=args.nprocs,
+                         heartbeat_deadline_s=args.heartbeat_deadline_s,
+                         max_restarts=args.max_restarts),
+        run_dir,
+        # a fault plan armed on the parent arms attempt 0 only: relaunches
+        # get it stripped, so an injected fault cannot fire forever
+        fault_plan=FaultPlan.from_env(),
+        env={"PYTHONPATH": os.environ.get("PYTHONPATH", "")},
+    )
+    summary = sup.run()
+    print(f"supervised pod done: attempts={summary['attempts']} "
+          f"restarts={summary['restarts']} final world={summary['world_size_final']} "
+          f"incidents={summary['incidents_path']}", flush=True)
     return 0
 
 

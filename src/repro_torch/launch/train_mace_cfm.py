@@ -29,6 +29,21 @@ one card, else NCCL):
         --nprocs 2 --engine data_parallel --compress-grads --steps 3 \
         --n-graphs 16 --capacity 48 --channels 4 --max-atoms 24
 
+Elastic and resilient training, with the flags of the JAX example:
+``--rescale-at STEP:R`` (repeatable, or comma-separated) builds an
+``ElasticTrainer`` that, after step STEP, drains the prefetch pipeline,
+snapshots, re-packs the epoch remainder and rebuilds the engine at R ranks
+(the sequential engine: the distributed ones change their world by a
+restart, ``launch.train --supervised``), and prints one ``rescale`` line
+per event; ``--elastic`` resumes a checkpoint written at another rank
+count; ``--heartbeat-dir`` writes a heartbeat file per step (else the
+``REPRO_HEARTBEAT_DIR`` a supervisor sets); ``--step-deadline-s`` arms the
+step watchdog (a hung step exits 44):
+
+    PYTHONPATH=src python -m repro_torch.launch.train_mace_cfm --device cpu \
+        --n-ranks 2 --rescale-at 2:1 --steps 4 --n-graphs 16 --capacity 48 \
+        --channels 4 --max-atoms 24
+
 Kernel selection, with the flags
 of ``examples/train_mace_cfm.py`` under the port's names (``pallas`` ->
 ``cuda``, ``xla`` -> ``fused``): ``--impl`` (the symmetric contraction) and
@@ -94,13 +109,25 @@ def main(argv=None) -> int:
                     help="checkpoint here and resume from it (none: no checkpoints)")
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain PyTorch versions; default the CUDA card")
+    ap.add_argument("--rescale-at", action="append", default=[], metavar="STEP:R",
+                    help="elastic drill: after STEP completes, drain, snapshot, "
+                         "re-pack the bins and rebuild the engine at R ranks "
+                         "(repeatable / comma-separated)")
+    ap.add_argument("--elastic", action="store_true",
+                    help="allow resuming a checkpoint written at another rank "
+                         "count (implied by --rescale-at)")
+    ap.add_argument("--heartbeat-dir", default=None,
+                    help="write a per-step heartbeat file here (else env "
+                         "REPRO_HEARTBEAT_DIR, which a PodSupervisor sets)")
+    ap.add_argument("--step-deadline-s", type=float, default=None,
+                    help="StepWatchdog deadline per step: a hung step exits 44")
     args = ap.parse_args(argv)
     if args.nprocs and not args.distributed:
         return _spawn(args, argv)
 
     from repro_torch.core.mace import MaceConfig
     from repro_torch.data.molecules import SyntheticCFMDataset
-    from repro_torch.train.train_loop import TrainerConfig
+    from repro_torch.train.train_loop import TrainerConfig, parse_rescale_schedule
 
     cfg = MaceConfig(
         n_species=10, channels=args.channels, hidden_ls=(0, 1), sh_lmax=3,
@@ -114,15 +141,18 @@ def main(argv=None) -> int:
     if args.distributed:
         device = _join_group(args)
     n_ranks = args.n_ranks or (args.nprocs if args.engine != "sequential" else 1)
+    schedule = parse_rescale_schedule(args.rescale_at)
     tcfg = TrainerConfig(
         capacity=args.capacity, edge_factor=48,
         max_graphs=max(16, args.capacity // 8), lr=5e-3, ema_decay=0.99,
         ckpt_dir=args.ckpt_dir, ckpt_every=50, prefetch=args.prefetch,
         precision=args.precision, engine=args.engine, n_ranks=n_ranks,
         n_nodes=args.n_nodes or None, compress_grads=args.compress_grads,
+        elastic=args.elastic or bool(schedule), heartbeat_dir=args.heartbeat_dir,
+        step_deadline_s=args.step_deadline_s,
     )
     try:
-        return _train(args, cfg, tcfg, ds, device)
+        return _train(args, cfg, tcfg, ds, device, schedule)
     finally:
         if args.distributed:
             import torch.distributed as dist
@@ -170,11 +200,15 @@ def _join_group(args) -> str:
     return device
 
 
-def _train(args, cfg, tcfg, ds, device) -> int:
+def _train(args, cfg, tcfg, ds, device, schedule) -> int:
     from repro_torch.core.mace import param_count
-    from repro_torch.train.train_loop import Trainer
+    from repro_torch.train.train_loop import ElasticTrainer, Trainer
 
-    tr = Trainer(cfg, tcfg, ds, sampler=args.sampler, seed=0, device=device)
+    if schedule:
+        tr = ElasticTrainer(cfg, tcfg, ds, sampler=args.sampler, seed=0, device=device,
+                            rescale_schedule=schedule)
+    else:
+        tr = Trainer(cfg, tcfg, ds, sampler=args.sampler, seed=0, device=device)
     if tr.maybe_restore():
         print(f"resumed from step {tr.global_step}")
     print(f"params={param_count(tr.params):,} graphs={len(ds)} "
@@ -206,6 +240,10 @@ def _train(args, cfg, tcfg, ds, device) -> int:
         print(f"prefetch: depth={tcfg.prefetch} overlap={tel.overlap_seconds(skip):.3f}s "
               f"({100 * tel.overlap_fraction(skip):.0f}% of host collate hidden) "
               f"edge_blocking={tel.blocking_seconds(skip):.3f}s")
+    for ev in tr.rescale_events:
+        print(f"rescale @step {ev['step']}: R {ev['from_ranks']} -> {ev['to_ranks']} "
+              f"repack={ev['repack_s']:.3f}s engine_rebuild={ev['rebuild_s']:.3f}s "
+              f"discarded_prefetch={ev['discarded_batches']}")
     if tcfg.ckpt_dir:
         print("checkpoint at", tcfg.ckpt_dir)
     return 0

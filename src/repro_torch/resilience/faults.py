@@ -1,10 +1,12 @@
 """Deterministic, env-armable fault injection: one mechanism for every drill.
 
 A copy of the JAX package's ``resilience/faults.py`` (standard library
-only), kept whole so that one ``REPRO_FAULT_PLAN`` arms both packages.  In
-the port only ``serve_worker_fault`` is consulted so far (the worker loop of
-``repro_torch.serve.server.GraphServer``); the trainer's sites below are
-parsed and validated but read by nothing yet.
+only), kept whole so that one ``REPRO_FAULT_PLAN`` arms both packages.  The
+port consults every site at the same place as the JAX package: the
+trainer's step loop and collation (``train.train_loop``), the checkpoint
+commit (``train.checkpoint``), the heartbeat writer
+(``resilience.heartbeat``) and the serving worker loop
+(``serve.server.GraphServer``).
 
 A *fault plan* is a JSON object mapping **site names** to spec dicts,
 carried in the ``REPRO_FAULT_PLAN`` environment variable so child processes

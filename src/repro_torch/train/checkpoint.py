@@ -20,9 +20,15 @@ so that a checkpoint written by either package restores into the other:
   ``tmp.<step>.shared``, fsyncs it, and only after a barrier does process 0
   write ``meta.json`` and the marker and rename, so a checkpoint never
   commits with a shard missing, and a crash before the rename leaves the
-  previous checkpoint the newest.
+  previous checkpoint the newest;
+* the ``corrupt_checkpoint_payload`` fault site (``resilience.faults``):
+  after the commit of the armed step, this process flips bytes of its own
+  committed shard, so the restore's checksum check has a real fault to
+  catch.
 
-Not ported: the fault-injection site of the JAX module.
+An elastic restore (another process count than the writers') reads shard
+0, which every writer's replicated state shares, with
+``expect_process_count=None``.
 """
 from __future__ import annotations
 
@@ -36,6 +42,8 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.resilience.faults import FaultPlan, corrupt_file
 
 Tree = Any
 _SEP = "/"
@@ -176,6 +184,7 @@ def save_checkpoint(
         os.makedirs(tmp)
         _write_shard(tmp, process_index, state)
         _commit(directory, tmp, final, step, meta, process_count=1)
+        _corrupt_if_armed(final, step, process_index)
         _gc(directory, keep, process_index=process_index)
         return final
     if barrier is None:
@@ -197,7 +206,21 @@ def save_checkpoint(
     # nobody returns (and possibly starts the next checkpoint, or restores)
     # until the commit is visible everywhere
     barrier(f"ckpt-commit-{step}")
+    _corrupt_if_armed(final, step, process_index)
     return final
+
+
+def _corrupt_if_armed(final: str, step: int, process_index: int) -> None:
+    """``corrupt_checkpoint_payload`` fault site: flips bytes in this
+    process's just-committed shard, so a restore meets a checkpoint that
+    looks committed but whose payload is garbage."""
+    plan = FaultPlan.from_env()
+    if not plan.corrupt_checkpoint_payload(step, process=process_index):
+        return
+    target = os.path.join(final, f"arrays.{process_index}.npz")
+    n = corrupt_file(target)
+    print(f"fault injection: corrupt_checkpoint_payload flipped {n} bytes "
+          f"in {target} (step {step})", file=sys.stderr, flush=True)
 
 
 def _gc(directory: str, keep: int, *, process_index: int = 0,
@@ -281,9 +304,9 @@ def restore_checkpoint(
 
     ``expect_process_count`` checks the writers' world size before any
     array loads: a checkpoint of N processes holds N shards with their
-    process-local residuals, which another world size would mis-restore
-    (``None`` skips the check; restoring across world sizes is elastic
-    work, not ported)."""
+    process-local residuals, which another world size would mis-restore.
+    Elastic readers, which re-initialise the rank-local state and read the
+    replicated shard 0, pass ``None``."""
     committed = sorted(_committed_steps(directory), reverse=True)
     if step is not None:
         candidates = [s for s in committed if s <= step]
@@ -308,8 +331,8 @@ def restore_checkpoint(
             raise ValueError(
                 f"checkpoint step {s} in {directory} was written by "
                 f"{ckpt_procs} process(es) but this reader expects "
-                f"{expect_process_count}; restoring across host counts is an "
-                "elastic rescale, which the port does not do"
+                f"{expect_process_count}; restore with TrainerConfig.elastic=True "
+                "to rescale across host counts (losing a host is a rescale event)"
             )
         with np.load(os.path.join(_step_dir(directory, s),
                                   f"arrays.{process_index}.npz")) as z:

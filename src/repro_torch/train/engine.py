@@ -53,10 +53,10 @@ host memory (one copy each way).  Each rank's step time is read after
 ``torch.cuda.synchronize`` around its own forward and backward, so
 :class:`RankTelemetry` holds measured per-rank times; the distributed
 engines ``all_gather`` each rank's time and load so that every process
-holds the ``[R]`` rows.
-
-Not ported: remat and the telemetry of elastic rescale (the engines are
-rebuilt by no rescale yet).
+holds the ``[R]`` rows.  An elastic rescale (``train_loop.Trainer.rescale``)
+closes the engine and builds another: its telemetry records the event's
+seconds (``record_rescale``), and ``RankTelemetry.merged`` reads every
+generation of a run as one.
 """
 from __future__ import annotations
 
@@ -95,6 +95,11 @@ class RankTelemetry:
     host_wait: List[float] = dataclasses.field(default_factory=list)
     # seconds of ``collate_s`` spent building the edge blocking
     host_block: List[float] = dataclasses.field(default_factory=list)
+    # elastic rescale events the trainer folded into this engine's run: per
+    # event, host seconds re-packing bins (Algorithm 1 on the epoch
+    # remainder) and seconds tearing down and rebuilding the engine
+    rescale_repack: List[float] = dataclasses.field(default_factory=list)
+    rescale_rebuild: List[float] = dataclasses.field(default_factory=list)
 
     def record(self, times: Sequence[float], loads: Sequence[float]) -> None:
         if len(times) != self.n_ranks or len(loads) != self.n_ranks:
@@ -111,6 +116,16 @@ class RankTelemetry:
         self.host_collate.append(float(collate_s))
         self.host_wait.append(float(wait_s))
         self.host_block.append(float(block_s))
+
+    def record_rescale(self, repack_s: float, rebuild_s: float) -> None:
+        """One elastic rescale event: bin re-pack seconds and engine
+        rebuild seconds."""
+        self.rescale_repack.append(float(repack_s))
+        self.rescale_rebuild.append(float(rebuild_s))
+
+    def rescale_seconds(self) -> Tuple[float, float]:
+        """(total repack seconds, total engine-rebuild seconds)."""
+        return float(np.sum(self.rescale_repack)), float(np.sum(self.rescale_rebuild))
 
     @property
     def n_steps(self) -> int:
@@ -163,6 +178,78 @@ class RankTelemetry:
 
     def blocking_seconds(self, skip: int = 0) -> float:
         return float(np.sum(self.host_block[skip:]))
+
+    @classmethod
+    def merged(cls, *generations: "RankTelemetry") -> "MergedTelemetry":
+        """One view over the telemetry of several engine *generations* (one
+        per elastic-rescale segment, oldest first).  Rank counts may differ,
+        so the per-generation matrices stay apart while every scalar
+        summary aggregates over the whole run; ``skip`` applies per
+        generation (each rebuilt engine pays its first step again)."""
+        if not generations:
+            raise ValueError("merged() needs at least one generation")
+        return MergedTelemetry(tuple(generations))
+
+
+@dataclasses.dataclass(frozen=True)
+class MergedTelemetry:
+    """Read-only aggregate over ``RankTelemetry`` generations (see
+    ``RankTelemetry.merged``): the same summaries, minus the single-matrix
+    accessors (rank counts differ across generations)."""
+
+    generations: Tuple[RankTelemetry, ...]
+
+    @property
+    def n_generations(self) -> int:
+        return len(self.generations)
+
+    @property
+    def n_steps(self) -> int:
+        return sum(g.n_steps for g in self.generations)
+
+    def work_matrices(self, skip: int = 0) -> List[np.ndarray]:
+        """One [steps, ranks] wall-seconds matrix per generation."""
+        return [g.work_matrix(skip) for g in self.generations]
+
+    def load_matrices(self, skip: int = 0) -> List[np.ndarray]:
+        return [g.load_matrix(skip) for g in self.generations]
+
+    def straggler_matrices(self, skip: int = 0) -> List[np.ndarray]:
+        return [g.straggler_matrix(skip) for g in self.generations]
+
+    def c_token(self, skip: int = 0) -> float:
+        """Whole-run seconds per atom: the generations' sums are added
+        before dividing, so long generations weigh proportionally."""
+        num = sum(float(t.sum()) for t in self.work_matrices(skip))
+        den = sum(float(x.sum()) for x in self.load_matrices(skip))
+        return num / max(den, 1.0) if num else 0.0
+
+    def measured_straggler(self, skip: int = 0) -> float:
+        """Step-weighted mean over generations of max/mean rank time."""
+        per_step = [w.max(axis=1) / np.maximum(w.mean(axis=1), 1e-12)
+                    for w in self.straggler_matrices(skip) if w.size]
+        return float(np.mean(np.concatenate(per_step))) if per_step else 1.0
+
+    def host_matrix(self, skip: int = 0) -> np.ndarray:
+        """[steps, 2] (collate_s, wait_s), concatenated across generations."""
+        mats = [m for m in (g.host_matrix(skip) for g in self.generations) if m.size]
+        return np.concatenate(mats, axis=0) if mats else np.zeros((0, 2))
+
+    def overlap_seconds(self, skip: int = 0) -> float:
+        return float(sum(g.overlap_seconds(skip) for g in self.generations))
+
+    def overlap_fraction(self, skip: int = 0) -> float:
+        h = self.host_matrix(skip)
+        total = float(h[:, 0].sum()) if h.size else 0.0
+        return self.overlap_seconds(skip) / total if total > 0 else 0.0
+
+    def blocking_seconds(self, skip: int = 0) -> float:
+        return float(sum(g.blocking_seconds(skip) for g in self.generations))
+
+    def rescale_seconds(self) -> Tuple[float, float]:
+        """(total repack seconds, total engine-rebuild seconds)."""
+        rs = [g.rescale_seconds() for g in self.generations]
+        return float(sum(r for r, _ in rs)), float(sum(b for _, b in rs))
 
 
 def make_loss_fn(mace_cfg: MaceConfig, tcfg, n_graphs: int) -> Callable:

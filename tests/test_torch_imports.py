@@ -42,6 +42,7 @@ def test_port_modules_import_no_jax_and_no_repro():
             "repro_torch.launch.bench_distribution", "repro_torch.launch.train_mace_cfm",
             "repro_torch.launch.grad_determinism", "repro_torch.launch.serve_mace",
             "repro_torch.resilience", "repro_torch.resilience.faults",
+            "repro_torch.resilience.heartbeat", "repro_torch.resilience.supervisor",
             "repro_torch.kernels.autotune", "repro_torch.kernels.bench",
             "repro_torch.launch.bench_kernels",
             "repro_torch.roofline", "repro_torch.roofline.analysis",

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MACE serving and training paths on one NVIDIA
-GPU, at every kernel impl and precision, and check them.
+GPU, at every kernel impl and precision, and its LM family, and check them.
 
     python3 chip_smoke.py
 
@@ -154,7 +154,31 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    success, its final checkpoint step 4 at one rank by one process, and
    the relaunched rank's launches 2/4/2/4 per step; ``detection_s``,
    ``recovery_s``, ``steps_lost`` and each attempt's wall time printed;
-12. report: the card's name and power limit, one JSON line of kernel
+12. the LM family (``repro_torch.models``; no TPU kernel, so none of
+   the four CUDA kernels: their launch counts over the phase must stay 0),
+   after freeing phase 11's memory: (a) full-width training of
+   ``granite_3_2b`` at its published config (40 layers, d 2048, 32/8
+   heads, d_ff 8192, vocab 49,155; bf16 compute, fp32 parameters and
+   Adam, remat), random weights from the seed, on 2 x 2,048 tokens packed
+   by Algorithm 1 (``pack_documents``) from ``launch/lm_pretrain.py``'s
+   synthetic Pareto documents: the bf16 forward loss of the first batch
+   within ``PRECISION_TOL["bf16"]`` of an fp32-compute forward on the same
+   parameters, then one warm-up ``make_lm_train_step`` step and 3 timed
+   by CUDA events: step ms, tokens/s, peak memory and the model-FLOP share
+   of ``HW.peak_flops_bf16`` (``lm_cell_cost``); every loss and gradient
+   norm finite; (b) every one of the ten ``REDUCED`` configs, fp32, on the
+   card and on the CPU from the same seeded parameters: one train step
+   (loss, Adam's moments and the parameters after it within 2e-4; the
+   parameters where Adam is well conditioned, the rest within 2 lr), then
+   ``LMServeEngine``'s prefill and 4 decode steps by graph replay (census
+   1 and 1) against the CPU engine's eager calls: logits within 2e-5, the
+   same greedy tokens; (c) full-width serving: ``python -m
+   repro_torch.launch.serve --config full --arch granite-3-2b`` in
+   process (bf16 parameters), 20 requests of 512 tokens in batches of 8
+   (the last padded), 64 new tokens each: tokens/s, prefill ms and decode
+   ms per token by replay, the same eager on the first batch (its first 8
+   greedy tokens those of the replay), the census exactly 1 and 1;
+13. report: the card's name and power limit, one JSON line of kernel
    numbers (each kernel at each precision, and the identity-blocked
    interaction kernels; the fp32 entries also carry the data-parallel
    runs' launches, the autotune phase's and the elastic phase's), and
@@ -165,7 +189,9 @@ Without a CUDA device it exits with code 2 before printing any result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import gc
 import inspect
 import itertools
 import json
@@ -176,6 +202,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -202,6 +229,18 @@ from repro_torch.kernels.channelwise_tp import ops as tp_ops  # noqa: E402
 from repro_torch.kernels.precision import PRECISIONS, round_to  # noqa: E402
 from repro_torch.kernels.symmetric_contraction import kernel as sck  # noqa: E402
 from repro_torch.kernels.bench import card_line  # noqa: E402
+from repro_torch.configs import ARCH_IDS as LM_ARCH_IDS  # noqa: E402
+from repro_torch.configs import get_config as get_lm_config  # noqa: E402
+from repro_torch.configs import get_reduced as get_lm_reduced  # noqa: E402
+from repro_torch.data.sequence_pack import pack_documents  # noqa: E402
+from repro_torch.launch import lm_pretrain  # noqa: E402
+from repro_torch.launch import serve as lm_serve_cli  # noqa: E402
+from repro_torch.launch.lm_train_step import (  # noqa: E402
+    init_opt_state, lm_value_and_grad, make_lm_train_step,
+)
+from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.roofline.analytic import lm_cell_cost  # noqa: E402
+from repro_torch.serve.lm_engine import LMServeEngine  # noqa: E402
 from repro_torch.launch.multihost import initialize_distributed, spawn_local  # noqa: E402
 from repro_torch.roofline.analysis import HW  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -2334,6 +2373,316 @@ def elastic_phase(card):
     return parts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the LM family
+# ---------------------------------------------------------------------------
+
+# a dense GQA family whose training state fits one card with room for the
+# activations: 2.634 B parameters at 16 B each (fp32 weights, gradients, m
+# and v) is about 42 GB
+LM_TRAIN_ARCH = "granite_3_2b"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 2, 2048
+LM_TRAIN_STEPS = 3                  # timed, after one warm-up step
+LM_LR = lm_pretrain.LR
+LM_REDUCED_BATCH, LM_REDUCED_SEQ = 2, 32
+LM_DECODE_STEPS = 4
+LM_STEP_TOL = 2e-4                  # rtol = atol, tests/test_backward.py
+LM_LOGITS_TOL = 2e-5                # rtol = atol, tests/test_kernels.py
+LM_SERVE_ARGV = ["--config", "full", "--arch", "granite-3-2b", "--requests", "20",
+                 "--batch", "8", "--prompt-len", "512", "--max-new", "64"]
+LM_EAGER_TOKENS = 8
+LM_PROFILE_GROUPS = (("gemm", ("gemm", "nvjet", "cutlass", "xmma")),
+                     ("elementwise", ("elementwise",)), ("reduce", ("reduce",)))
+
+
+def _free_device_memory():
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def _lm_profile(label, fn, step_ms=None):
+    """``fn()`` once under ``torch.profiler``, recording the card only (the
+    host's ops of a training step would make the profile slow to
+    aggregate): the card's busy and idle share of its wall time (and of
+    ``step_ms``, an unprofiled CUDA-event time of the same work, when
+    given), its kernels by group (GEMM, elementwise, reduction, the rest)
+    and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = _kernel_events(prof)
+    busy_ms = sum(_device_us(e) for e in events) / 1e3
+    if busy_ms == 0:
+        raise AssertionError(f"the profiler saw no device time in {label}")
+    groups = {name: 0.0 for name, _ in LM_PROFILE_GROUPS}
+    groups["other"] = 0.0
+    for e in events:
+        key = e.key.lower()
+        name = next((g for g, subs in LM_PROFILE_GROUPS if any(x in key for x in subs)), "other")
+        groups[name] += _device_us(e) / 1e3
+    against = (f" device_idle_share_against_unprofiled={1 - busy_ms / step_ms:.3f} "
+               f"(unprofiled {step_ms:.1f} ms)" if step_ms else "")
+    print(f"{label} profile: wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.1f} "
+          f"device_idle_share={1 - busy_ms / wall_ms:.3f}{against} "
+          f"device_ops={sum(e.count for e in events)} by group ms "
+          f"{json.dumps({k: round(v, 3) for k, v in groups.items()})}", flush=True)
+    for e in sorted(events, key=_device_us, reverse=True)[:10]:
+        print(f"{label} profile top: {_device_us(e) / 1e3:9.3f} ms x{e.count:<5d} {e.key[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, groups=groups,
+                ops=sum(e.count for e in events))
+
+
+def lm_train_full_width(card, dev=None, cfg=None):
+    """Phase 12 (a): ``granite_3_2b`` at its published config, trained on
+    packed documents; returns the timed steps' numbers."""
+    dev = dev or torch.device("cuda")
+    cfg = cfg or get_lm_config(LM_TRAIN_ARCH)
+    B, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    lengths, token_fn = lm_pretrain.synth_docs(400, cfg.vocab, seed=SEED)
+    packed = pack_documents(lengths, S, B, token_fn)
+    batches = [lm_pretrain.packed_batch(packed, i, B, cfg, dev)
+               for i in range(2 + LM_TRAIN_STEPS)]
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    m, v = init_opt_state(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    with torch.no_grad():
+        loss16 = float(lm.forward_train(model, cfg, batches[0])[0])
+        loss32 = float(lm.forward_train(
+            model, dataclasses.replace(cfg, compute_dtype=torch.float32), batches[0])[0])
+    rel = abs(loss16 - loss32) / abs(loss32)
+    print(f"lm train {cfg.name}: {n_params:,} parameters (param_count {cfg.param_count():,}), "
+          f"{packed.tokens.shape[0]} packed bins of {S}; first batch loss bf16 {loss16:.6f} "
+          f"fp32 {loss32:.6f} rel {rel:.2e} (tol {PRECISION_TOL['bf16']:g}); set-up "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    if not rel <= PRECISION_TOL["bf16"]:
+        raise AssertionError(f"bf16 loss {loss16} is {rel:.2e} from the fp32 {loss32}")
+    step = make_lm_train_step(cfg, lr=LM_LR)
+    cost = lm_cell_cost(cfg, {"kind": "train", "batch": B, "seq": S})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i, batch in enumerate(batches[:-1]):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        model, m, v, loss, gnorm = step(model, m, v, batch, i)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        row = dict(step=i, ms=ms, loss=float(loss), grad_norm=float(gnorm),
+                   tokens_per_s=B * S / (ms / 1e3),
+                   real_tokens=int((batch["segments"] > 0).sum()),
+                   mfu=cost["model_flops"] / (ms / 1e3) / HW().peak_flops_bf16)
+        rows.append(row)
+        print(f"lm train step {i}{' (warm-up)' if i == 0 else ''}: {ms:.1f} ms, "
+              f"{row['tokens_per_s']:.0f} tokens/s ({row['real_tokens']} of {B * S} real), "
+              f"model-FLOP share {row['mfu']:.4f} of {HW().peak_flops_bf16 / 1e12:.0f} "
+              f"TFLOP/s bf16, loss {row['loss']:.6f}, grad norm {row['grad_norm']:.4f}; "
+              f"card {card}", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"lm train peak memory {peak:.2f} GB, of which {held_gb:.2f} GB held by earlier "
+          f"phases: {peak - held_gb:.2f} GB for the model, m, v and the steps", flush=True)
+    bad = [r for r in rows if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]))]
+    if bad:
+        raise AssertionError(f"non-finite loss or gradient norm: {bad}")
+    timed = rows[1:]
+    state = [model, m, v]
+
+    def one_more_step():
+        state[:] = step(*state, batches[-1], len(rows))[:3]
+
+    profile = _lm_profile("lm train", one_more_step, min(r["ms"] for r in timed))
+    # the optimizer's share: a step against value-and-grad alone on a batch
+    # of the same shape
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    lm_value_and_grad(state[0], cfg, batches[-1])
+    end.record()
+    torch.cuda.synchronize()
+    vg_ms = start.elapsed_time(end)
+    print(f"lm train value-and-grad alone {vg_ms:.1f} ms: AdamW and the gradient norm take "
+          f"{min(r['ms'] for r in timed) - vg_ms:.1f} ms of the fastest timed step", flush=True)
+    out = dict(arch=cfg.name, params=n_params, model_flops=cost["model_flops"],
+               flops=cost["flops"], peak_gb=peak, held_gb=held_gb, steps=rows, profile=profile,
+               value_and_grad_ms=vg_ms,
+               step_ms=[r["ms"] for r in timed], tokens_per_s=[r["tokens_per_s"] for r in timed],
+               mfu=[r["mfu"] for r in timed], loss_bf16=loss16, loss_fp32=loss32)
+    print(f"lm train summary: {json.dumps(out)}", flush=True)
+    del model, m, v, step, state
+    return out
+
+
+def _lm_reduced_batch(cfg):
+    """LM_REDUCED_BATCH bins of LM_REDUCED_SEQ tokens: documents of 3-19
+    tokens packed by Algorithm 1, ids in the config's vocabulary."""
+    rng = np.random.default_rng(SEED)
+    packed = pack_documents(rng.integers(3, 20, size=60), LM_REDUCED_SEQ, LM_REDUCED_BATCH,
+                            lambda d, ln: np.random.default_rng(d).integers(1, cfg.vocab, ln))
+    return lm_pretrain.packed_batch(packed, 0, LM_REDUCED_BATCH, cfg, "cpu")
+
+
+def _hold_lm_step(arch, got, want, lr):
+    """One train step on the card against the CPU: Adam's moments
+    everywhere, the parameters where the CPU's sqrt(v_hat) is 0 or above
+    ``ADAM_HELD_EPS`` eps (Adam turns float32 rounding near |g| = eps into
+    up to lr of an update), the rest within 2 lr.  Returns the count of
+    parameters not held."""
+    (gmodel, gm, gv), (wmodel, wm, wv) = got, want
+    for name, g, w in (("m", gm, wm), ("v", gv, wv)):
+        for k in w:
+            torch.testing.assert_close(g[k].cpu(), w[k], rtol=LM_STEP_TOL, atol=LM_STEP_TOL,
+                                       msg=lambda s: f"{arch} {name} {k}: {s}")
+    wparams = dict(wmodel.named_parameters())
+    unheld = 0
+    for k, p in gmodel.named_parameters():
+        g, w = p.detach().cpu(), wparams[k].detach()
+        den = torch.sqrt(wv[k] / (1 - ADAM_B2))
+        held = (den == 0) | (den > ADAM_HELD_EPS * ADAM_EPS)
+        torch.testing.assert_close(g[held], w[held], rtol=LM_STEP_TOL, atol=LM_STEP_TOL,
+                                   msg=lambda s: f"{arch} parameter {k}: {s}")
+        if float((g - w).abs().max()) > 2 * lr + LM_STEP_TOL:
+            raise AssertionError(f"{arch} parameter {k} moved {float((g - w).abs().max())}")
+        unheld += int((~held).sum())
+    return unheld
+
+
+def lm_reduced_families(card, dev=None):
+    """Phase 12 (b): every architecture's REDUCED config on the card
+    against the CPU, from the same seeded parameters: one train step, then
+    prefill and decode by graph replay."""
+    dev = dev or torch.device("cuda")
+    cpu = torch.device("cpu")
+    want_census = 1 if dev.type == "cuda" else 0
+    rows = {}
+    for arch in LM_ARCH_IDS:
+        t0 = time.perf_counter()
+        cfg = get_lm_reduced(arch)
+        init = lm.init_params(cfg, torch.Generator().manual_seed(SEED))
+        batch = _lm_reduced_batch(cfg)
+        prompts = batch["tokens"]
+        stepped = []
+        for d in (cpu, dev):
+            model = copy.deepcopy(init).to(d)
+            m, v = init_opt_state(model)
+            model, m, v, loss, gnorm = make_lm_train_step(cfg, lr=LM_LR)(
+                model, m, v, {k: t.to(d) for k, t in batch.items()}, 0)
+            stepped.append((model, m, v, float(loss), float(gnorm)))
+        (cm, cmm, cmv, closs, _), (gm, gmm, gmv, gloss, ggn) = stepped
+        if not (np.isfinite(gloss) and np.isfinite(ggn)):
+            raise AssertionError(f"{arch}: loss {gloss} grad norm {ggn}")
+        np.testing.assert_allclose(gloss, closs, rtol=LM_STEP_TOL, atol=LM_STEP_TOL,
+                                   err_msg=f"{arch} loss")
+        unheld = _hold_lm_step(arch, (gm, gmm, gmv), (cm, cmm, cmv), LM_LR)
+
+        engines = [LMServeEngine(copy.deepcopy(init).to(d), cfg, LM_REDUCED_BATCH,
+                                 LM_REDUCED_SEQ, device=d) for d in (cpu, dev)]
+        for eng in engines:
+            eng.warmup()
+        census = engines[1].compile_census()
+        if census != {"prefill": want_census, "decode": want_census}:
+            raise AssertionError(f"{arch}: census {census}")
+        logit_err, tokens = 0.0, []
+        for i in range(1 + LM_DECODE_STEPS):
+            res = []
+            for eng in engines:
+                tok, logits = (eng.prefill(prompts.to(eng.device)) if i == 0
+                               else eng.decode(LM_REDUCED_SEQ + i - 1))
+                res.append((tok.cpu().clone(), logits.cpu().clone()))
+            (ct, cl), (gt, gl) = res
+            torch.testing.assert_close(gl, cl, rtol=LM_LOGITS_TOL, atol=LM_LOGITS_TOL,
+                                       msg=lambda s: f"{arch} logits at step {i}: {s}")
+            if not torch.equal(gt, ct):
+                raise AssertionError(f"{arch}: greedy tokens differ at step {i}")
+            logit_err = max(logit_err, float((gl - cl).abs().max()))
+            tokens.append(gt[:, 0].tolist())
+        for eng in engines:
+            eng.close()
+        rows[arch] = dict(loss=gloss, loss_cpu=closs, grad_norm=ggn, unheld=unheld,
+                          logits_max_abs_err=logit_err, census=census,
+                          s=time.perf_counter() - t0)
+        print(f"lm {arch} reduced: loss card {gloss:.7f} cpu {closs:.7f}, grad norm {ggn:.5f}, "
+              f"{unheld} parameters not held (Adam near eps), logits max abs err "
+              f"{logit_err:.2e} over prefill + {LM_DECODE_STEPS} decode replays, census "
+              f"{census}, greedy {tokens[:2]}... ({rows[arch]['s']:.1f}s)", flush=True)
+    return rows
+
+
+def lm_serve_full_width(card, argv=None):
+    """Phase 12 (c): the serving entry point at the published width, then
+    the first batch again by replay and eagerly, timed alike."""
+    args = lm_serve_cli.parse_args(argv or LM_SERVE_ARGV)
+    res = lm_serve_cli.serve(args)
+    st, eng = res["stats"], res["engine"]
+    dev = eng.device
+    if st["census"] != {"prefill": 1, "decode": 1} and dev.type == "cuda":
+        raise AssertionError(f"serving census {st['census']}")
+    prompts = torch.from_numpy(res["prompts"][:args.batch]).to(dev)
+    timed = {}
+    for mode, eager in (("replay", False), ("eager", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = [eng.prefill(prompts, eager=eager)[0].clone()]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(LM_EAGER_TOKENS - 1):
+            toks.append(eng.decode(args.prompt_len + i, eager=eager)[0].clone())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        timed[mode] = dict(prefill_ms=1e3 * (t1 - t0),
+                           decode_ms_per_token=1e3 * (t2 - t1) / (LM_EAGER_TOKENS - 1),
+                           tokens=torch.cat(toks, 1).cpu().numpy())
+    served = res["tokens"][:args.batch, :LM_EAGER_TOKENS]
+    for mode in timed:
+        if not np.array_equal(timed[mode]["tokens"], served):
+            raise AssertionError(f"{mode} greedy tokens {timed[mode]['tokens'].tolist()} differ "
+                                 f"from the served run's {served.tolist()}")
+    profiles = {mode: _lm_profile(f"lm decode {mode}", lambda eager=eager: eng.decode(
+        args.prompt_len + LM_EAGER_TOKENS, eager=eager)) for mode, eager in
+        (("replay", False), ("eager", True))}
+    census = eng.compile_census()
+    eng.close()
+    out = dict(st, profiles=profiles, **{f"{m}_{k}": v for m, t in timed.items() for k, v in t.items()
+                      if k != "tokens"})
+    print(f"lm serve {st['arch']}: {args.requests} requests x {args.max_new} tokens in "
+          f"{st['wall_s']:.2f}s, {st['tokens_per_s']:.1f} tokens/s; per batch prefill ms "
+          f"{[round(x, 2) for x in st['prefill_ms']]}, decode ms per token "
+          f"{[round(x, 3) for x in st['decode_ms_per_token']]}; first batch, "
+          f"{LM_EAGER_TOKENS} tokens: replay prefill {timed['replay']['prefill_ms']:.2f} ms, "
+          f"decode {timed['replay']['decode_ms_per_token']:.3f} ms/token; eager prefill "
+          f"{timed['eager']['prefill_ms']:.2f} ms, decode "
+          f"{timed['eager']['decode_ms_per_token']:.3f} ms/token; first {LM_EAGER_TOKENS} "
+          f"greedy tokens equal (replay, eager, served); census {census}; warm-up "
+          f"{st['warmup_s']:.1f}s; card {card}", flush=True)
+    return out
+
+
+def lm_phase(card):
+    """Phase 12: (a) full-width training, (b) every family reduced, (c)
+    full-width serving.  The LM path has no CUDA kernel of the four: their
+    counts over the phase stay 0."""
+    print(f"lm phase: {_free_device_memory():.2f} GB held after phase 11, "
+          f"{threading.active_count()} threads alive", flush=True)
+    t0 = time.perf_counter()
+    _reset_launches()
+    train = lm_train_full_width(card)
+    print(f"lm phase: {_free_device_memory():.2f} GB held after (a)", flush=True)
+    reduced = lm_reduced_families(card)
+    serving = lm_serve_full_width(card)
+    launches = _launches()
+    if any(launches.values()):
+        raise AssertionError(f"the LM path launched MACE kernels: {launches}")
+    print(f"lm phase: {time.perf_counter() - t0:.1f}s; MACE kernel launches {launches}",
+          flush=True)
+    _free_device_memory()
+    return dict(train=train, reduced=reduced, serving=serving)
+
+
 def kernel_units():
     """(label, (source, header)) of the nine kernel libraries: the
     symmetric contraction's spec and both layers' tensor-product specs, each
@@ -2481,6 +2830,7 @@ def main() -> int:
     print(f"autotune phase: {time.perf_counter() - t0:.1f}s, of which tuning "
           f"{tune_s:.1f}s", flush=True)
     elastic_launches = elastic_phase(card)
+    lm_phase(card)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s")
     print(card)

@@ -114,3 +114,39 @@ def resolve_device(device: Optional[Any]) -> torch.device:
             "device='cpu' to run the plain PyTorch versions on the CPU"
         )
     return dev
+
+
+def _unstack(segments: Mapping[str, Any], cfg, convert) -> list:
+    """The JAX package's per-segment stacks ``{"seg{si}": [per position a
+    tree whose leaves are stacked over the segment's repeats]}`` -> one tree
+    per layer, in layer order (layer ``r * plen + pos`` of a segment is
+    stack position ``pos``, repeat ``r``)."""
+    def leaf(tree, r):
+        if isinstance(tree, Mapping):
+            return {k: leaf(v, r) for k, v in tree.items()}
+        return convert(np.asarray(tree)[r])
+
+    layers = []
+    for si, (plen, reps) in enumerate(cfg.segments):
+        seg = segments[f"seg{si}"]
+        layers += [leaf(seg[pos], r) for r in range(reps) for pos in range(plen)]
+    return layers
+
+
+def lm_params_from_jax(tree: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The JAX LM parameters (``models/model.py::init_params``'s pytree as
+    numpy) -> the tree ``repro_torch.models.model.LM(cfg, tree)`` takes:
+    ``embed``, ``head``, ``final_norm`` and one tree per layer, each tensor
+    in ``cfg.param_dtype``."""
+    # copies: the port updates its parameters in place
+    conv = lambda a: torch.from_numpy(np.array(a, np.float32)).to(cfg.param_dtype)  # noqa: E731
+    return {"embed": conv(tree["embed"]), "head": conv(tree["head"]),
+            "final_norm": conv(tree["final_norm"]),
+            "layers": _unstack(tree, cfg, conv)}
+
+
+def lm_state_from_jax(state: Mapping[str, Any], cfg) -> list:
+    """A JAX decode state (``init_decode_state`` / ``forward_prefill`` /
+    ``decode_step``'s, as numpy) -> the port's list of per-layer state
+    dicts, each tensor in its numpy dtype."""
+    return _unstack(state, cfg, lambda a: torch.from_numpy(np.array(a)))

@@ -1,10 +1,11 @@
-"""Analytic FLOP / HBM-byte cells for ONE kernel call per (kind, impl): the
+"""Analytic FLOP / HBM-byte cells: one kernel call per (kind, impl), the
 autotuner's ranking for shapes with no measured trajectory row
-(``kernels.autotune``).
+(``kernels.autotune``), and one LM cell per (arch, shape).
 
-Port of ``kernel_cell_cost`` of the JAX package's ``roofline/analytic.py``
-(its LM and whole-model cost models are not ported), on the port's own
-copies of the CG, tensor-product and symmetric-contraction tables.  The
+Port of ``kernel_cell_cost``, ``lm_cell_cost`` and ``_avg_causal_kv`` of
+the JAX package's ``roofline/analytic.py`` (its whole-model MACE cost model
+is not ported), on the port's own copies of the CG, tensor-product and
+symmetric-contraction tables.  The
 JAX impl ``pallas`` is the port's ``cuda`` (``bridge.JAX_IMPL_NAMES``), so
 the kernel branch prices ``cuda`` the way the JAX one prices ``pallas``:
 
@@ -125,3 +126,103 @@ def kernel_cell_cost(
     elif mode != "fwd":
         raise ValueError(f"mode must be 'fwd' or 'fwd_bwd', got {mode!r}")
     return {"flops": float(flops), "hbm_bytes": float(bytes_)}
+
+
+# --------------------------- LM cells ---------------------------------------
+#
+# The JAX model's conventions: matmul FLOPs = 2*M*N*K; training is 4x the
+# forward with remat (forward, recompute, 2x backward), 3x without; prefill
+# and decode are forward only; attention uses the exact causal / window
+# average KV length.  HBM bytes: bf16 parameter copies streamed once per
+# pass, the optimizer's fp32 read and write of params, m and v, residual
+# stream traffic with a documented constant, KV caches read once per decode
+# token (fused attention: no S^2 traffic).
+
+
+def _avg_causal_kv(S: int, window) -> float:
+    """mean over query positions t of min(t+1, window)."""
+    if window is None or window >= S:
+        return (S + 1) / 2.0
+    W = window
+    # positions 0..W-1 see t+1; the rest see W
+    return (W * (W + 1) / 2.0 + (S - W) * W) / S
+
+
+def lm_cell_cost(cfg, shape: Dict[str, Any]) -> Dict[str, float]:
+    """FLOPs, HBM bytes and model FLOPs (6·N·D train, 2·N·D otherwise) of
+    one LM cell: ``shape`` = {"kind": train|prefill|decode, "batch",
+    "seq"}."""
+    kind = shape["kind"]
+    B, S = shape["batch"], shape["seq"]
+    d, dh = cfg.d_model, cfg.head_dim
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    cbytes = 2  # bf16 compute
+    p_total = cfg.param_count()
+    p_active = cfg.active_param_count()
+
+    T = B * S if kind in ("train", "prefill") else B
+    mat_fwd = 2.0 * T * p_active
+
+    # mixer extras per layer
+    attn_fwd = mamba_fwd = mlstm_fwd = slstm_fwd = 0.0
+    kv_bytes = 0.0
+    n_attn = 0
+    for i in range(cfg.n_layers):
+        mixer, _ = cfg.layer_kinds(i)
+        window = cfg.window if mixer == "swa" else None
+        if mixer in ("attn", "swa"):
+            n_attn += 1
+            if kind == "decode":
+                kv = min(S, window) if window else S
+                attn_fwd += 4.0 * B * Hq * dh * kv
+                kv_bytes += 2.0 * B * kv * Hkv * dh * cbytes  # read k+v
+            else:
+                kv_avg = _avg_causal_kv(S, window)
+                attn_fwd += 4.0 * B * S * Hq * dh * kv_avg
+                kv_bytes += 2.0 * B * S * Hkv * dh * cbytes   # write k+v
+        elif mixer == "mamba":
+            di = cfg.mamba_expand * d
+            ds = cfg.mamba_d_state
+            steps = S if kind != "decode" else 1
+            mamba_fwd += B * steps * di * ds * 10.0 + 2.0 * B * steps * di * ds
+        elif mixer == "mlstm":
+            H = cfg.n_heads
+            dhx = d // H
+            c = min(256, S)
+            steps = S if kind != "decode" else 1
+            mlstm_fwd += B * H * steps * (4.0 * c * dhx + 4.0 * dhx * dhx)
+        elif mixer == "slstm":
+            H = cfg.n_heads
+            dhx = d // H
+            steps = S if kind != "decode" else 1
+            slstm_fwd += B * steps * (8.0 * H * dhx * dhx + 20.0 * d)
+
+    fwd = mat_fwd + attn_fwd + mamba_fwd + mlstm_fwd + slstm_fwd
+    if kind == "train":
+        factor = 4.0 if cfg.remat else 3.0
+        flops = fwd * factor
+    else:
+        flops = fwd
+
+    # HBM bytes
+    if kind == "train":
+        # fwd stream + bwd stream of bf16 param copies, fp32 opt update
+        # (read p,m,v + write p,m,v), fp32 grads write+read
+        param_traffic = p_total * (2 * cbytes + 6 * 4 + 2 * 4)
+        act_traffic = 12.0 * T * d * cfg.n_layers * cbytes
+        hbm = param_traffic + act_traffic + kv_bytes * 3
+    elif kind == "prefill":
+        hbm = p_total * cbytes + 8.0 * T * d * cfg.n_layers * cbytes + kv_bytes
+    else:  # decode
+        cache_read = kv_bytes  # full cache read per token
+        hbm = p_total * cbytes + cache_read + 8.0 * B * d * cfg.n_layers * cbytes
+
+    return {
+        "flops": float(flops),
+        "hbm_bytes": float(hbm),
+        "model_flops": float(6.0 * T * p_active) if kind == "train" else float(2.0 * T * p_active),
+        "tokens": float(T),
+        "params_total": float(p_total),
+        "params_active": float(p_active),
+        "n_attn_layers": float(n_attn),
+    }

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -53,7 +53,8 @@ from repro_torch.train.engine import interaction_consumes_blocking
 
 from .buckets import bucket_key
 
-__all__ = ["ServeEngine", "make_serve_engine", "resolve_device", "resolve_serve_config"]
+__all__ = ["ServeEngine", "capture_graph", "make_serve_engine", "resolve_device",
+           "resolve_serve_config"]
 
 
 def resolve_serve_config(
@@ -74,6 +75,29 @@ def resolve_serve_config(
         mace_cfg, capacity=capacity, edge_factor=edge_factor, platform=platform,
         mode="fwd_bwd", block_candidates=block_candidates,
     )
+
+
+def capture_graph(fn: Callable[[], Any], stream: torch.cuda.Stream, device: torch.device):
+    """Run ``fn`` once eagerly on the side ``stream`` (it builds and loads
+    what it launches and sets up autograd and cuBLAS), then capture it into
+    a ``torch.cuda.CUDAGraph`` with a memory pool of its own, in
+    ``thread_local`` error mode.  Returns (graph, fn's outputs, the kernel
+    launches the capture tallied, device bytes the pool reserved)."""
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize(device)
+    # free the eager run's cached blocks first, so that what the capture
+    # reserves is the pool alone
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    graph = torch.cuda.CUDAGraph()
+    with cuda_lib.recording_launches(stream) as tally:
+        with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(),
+                              stream=stream, capture_error_mode="thread_local"):
+            outputs = fn()
+    torch.cuda.synchronize(device)
+    return graph, outputs, dict(tally), torch.cuda.memory_reserved(device) - reserved
 
 
 @dataclasses.dataclass
@@ -156,24 +180,9 @@ class ServeEngine:
     def _capture(self, prog: _BucketProgram) -> None:
         if prog.graph is not None:
             raise RuntimeError(f"bucket {bucket_key(prog.bucket)} is already captured")
-        stream = self._stream
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            self._eager(prog)
-        torch.cuda.synchronize(self.device)
-        # free the eager run's cached blocks first, so that what the capture
-        # reserves is the pool alone
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph()
-        with cuda_lib.recording_launches(stream) as tally:
-            with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(),
-                                  stream=stream, capture_error_mode="thread_local"):
-                outputs = self._eager(prog)
-        torch.cuda.synchronize(self.device)
-        prog.graph, prog.outputs, prog.launches = graph, outputs, dict(tally)
+        prog.graph, prog.outputs, prog.launches, prog.pool_bytes = capture_graph(
+            lambda: self._eager(prog), self._stream, self.device)
         prog.captures += 1
-        prog.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
 
     def close(self) -> None:
         """Release every bucket's graph and drop its buffers, then return the

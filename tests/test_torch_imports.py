@@ -46,7 +46,19 @@ def test_port_modules_import_no_jax_and_no_repro():
             "repro_torch.kernels.autotune", "repro_torch.kernels.bench",
             "repro_torch.launch.bench_kernels",
             "repro_torch.roofline", "repro_torch.roofline.analysis",
-            "repro_torch.roofline.analytic"]
+            "repro_torch.roofline.analytic", "repro_torch.configs",
+            *(f"repro_torch.configs.{a}" for a in (
+                "internvl2_26b", "musicgen_large", "qwen3_14b", "qwen2_5_3b", "granite_3_2b",
+                "gemma3_4b", "xlstm_125m", "mixtral_8x22b", "qwen3_moe_235b_a22b",
+                "jamba_v0_1_52b")),
+            "repro_torch.models", "repro_torch.models.layers",
+            "repro_torch.models.attention", "repro_torch.models.moe",
+            "repro_torch.models.mamba", "repro_torch.models.xlstm",
+            "repro_torch.models.model", "repro_torch.data.sequence_pack",
+            "repro_torch.launch.lm_train_step", "repro_torch.launch.lm_pretrain",
+            "repro_torch.launch.serve", "repro_torch.serve.lm_engine",
+            "repro_torch.kernels.symmetric_contraction.ref",
+            "repro_torch.kernels.channelwise_tp.ref"]
     proc = _run("".join(f"import {m}\n" for m in mods) + _FORBIDDEN_CHECK)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

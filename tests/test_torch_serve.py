@@ -210,7 +210,6 @@ def test_warm_forward_builds_no_tensor_from_the_host(impl, monkeypatch):
     bucket = engine.buckets[-1]
     ds = SyntheticCFMDataset(8, seed=0, max_atoms=24)
     batch, _ = engine.collate([ds.get(0), ds.get(1)], bucket)
-    want = [t.clone() for t in engine.forward(batch, bucket)]
 
     def refuse(name, real):
         def guarded(data, *args, **kwargs):
@@ -220,10 +219,18 @@ def test_warm_forward_builds_no_tensor_from_the_host(impl, monkeypatch):
             return real(data, *args, **kwargs)
         return guarded
 
-    monkeypatch.setattr(torch, "as_tensor", refuse("as_tensor", torch.as_tensor))
-    monkeypatch.setattr(torch, "tensor", refuse("tensor", torch.tensor))
-    got = engine.forward(batch, bucket)
-    monkeypatch.undo()
+    # one intra-op thread: under CPU contention a sum split over threads can
+    # differ between two calls, and the two forwards are held bit for bit
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        want = [t.clone() for t in engine.forward(batch, bucket)]
+        monkeypatch.setattr(torch, "as_tensor", refuse("as_tensor", torch.as_tensor))
+        monkeypatch.setattr(torch, "tensor", refuse("tensor", torch.tensor))
+        got = engine.forward(batch, bucket)
+        monkeypatch.undo()
+    finally:
+        torch.set_num_threads(threads)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     engine.close()

@@ -178,7 +178,35 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    (the last padded), 64 new tokens each: tokens/s, prefill ms and decode
    ms per token by replay, the same eager on the first batch (its first 8
    greedy tokens those of the replay), the census exactly 1 and 1;
-13. report: the card's name and power limit, one JSON line of kernel
+13. the LM scaffold's multi-device half (no TPU kernel: the four CUDA
+   kernels' launch counts over the phase, read in every child process
+   that runs it and summed, must stay 0): (a) the manual-DP
+   step ``make_lm_train_step_ddp`` on ``xlstm_125m`` at its published
+   config (12 layers, d 768, 4 heads, vocab 50,304; bf16 compute, fp32
+   parameters and Adam), R = 2 gloo processes sharing the card
+   (``chip_smoke.py --lm-ddp-rank`` children, phase 9's deterministic
+   settings), random weights from the seed, one packed sequence of
+   ``LM_DDP_SEQ`` tokens per rank from ``launch/lm_pretrain.py``'s
+   documents; 3 plain steps and 3 compressed (the two groups and (b) at
+   once), each timed by CUDA events
+   (step ms, all-reduce ms with the host staging, tokens/s, peak memory
+   per rank); the ranks stay bit-identical replicas (a digest of every
+   parameter's and moment's bits, and the losses), and after the run rank
+   0 holds each step against the oracle from the step's own state: both
+   ranks' gradients computed in turn, averaged (or quantised and averaged
+   by the port's one-process emulation), the same AdamW (losses within
+   rtol 1e-5; parameters, m and v within 2e-4 where Adam is well
+   conditioned, the rest counted); (b) one plain step of (a)'s model
+   in an NCCL world of one against ``make_lm_train_step`` on the
+   same state and batch (the mean of one rank issues no collective; phase
+   9's compressed world of one drives NCCL's); (c) the dry run at full width as child processes,
+   all at once (``python -m repro_torch.launch.dryrun``: ``DRYRUN_CELLS``), each ok
+   with all-reduce bytes (any collective, for a decode cell), collective
+   bytes and FLOPs above 0 and ``argument_gb`` equal to its placements'
+   local shard bytes, printing ``trace_s``, the bytes by kind and the
+   roofline terms, and recording the four kernels' launches while it
+   traced (``kernel_launches``);
+14. report: the card's name and power limit, one JSON line of kernel
    numbers (each kernel at each precision, and the identity-blocked
    interaction kernels; the fp32 entries also carry the data-parallel
    runs' launches, the autotune phase's and the elastic phase's), and
@@ -236,7 +264,7 @@ from repro_torch.data.sequence_pack import pack_documents  # noqa: E402
 from repro_torch.launch import lm_pretrain  # noqa: E402
 from repro_torch.launch import serve as lm_serve_cli  # noqa: E402
 from repro_torch.launch.lm_train_step import (  # noqa: E402
-    init_opt_state, lm_value_and_grad, make_lm_train_step,
+    init_opt_state, lm_value_and_grad, make_lm_train_step, make_lm_train_step_ddp,
 )
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.roofline.analytic import lm_cell_cost  # noqa: E402
@@ -2683,6 +2711,319 @@ def lm_phase(card):
     return dict(train=train, reduced=reduced, serving=serving)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the LM scaffold's multi-device half
+# ---------------------------------------------------------------------------
+
+# the architecture the JAX package runs manual DP for (its dry run's xlstm
+# override); train_4k gives each rank 4,096 tokens, halved for the sLSTM's
+# one Python step per token, and again each time a step passed 10 s (at
+# 512 tokens this phase's steps took 14.5-19.3 s; PERF.md §6)
+LM_DDP_ARCH = "xlstm_125m"
+LM_DDP_DEVICE = "cuda"
+LM_DDP_SEQ = 256
+LM_DDP_R = 2
+LM_DDP_STEPS = 3
+LM_DDP_DEADLINE_S = 900
+LM_DDP_LOSS_RTOL = 1e-5
+DRYRUN_CELLS = [("granite_3_2b", "train_4k", "single"), ("granite_3_2b", "train_4k", "multi"),
+                ("mace_cfm", "train_bins", "single")]
+DRYRUN_TIMEOUT_S = 300
+
+
+def _lm_ddp_batches(cfg, dev):
+    """One batch per step: ``LM_DDP_R`` packed sequences of ``LM_DDP_SEQ``
+    tokens (row r is rank r's)."""
+    lengths, token_fn = lm_pretrain.synth_docs(400, cfg.vocab, seed=SEED)
+    packed = pack_documents(lengths, LM_DDP_SEQ, LM_DDP_R, token_fn)
+    return [lm_pretrain.packed_batch(packed, i, LM_DDP_R, cfg, dev) for i in range(LM_DDP_STEPS)]
+
+
+def _bits_digest(tensors) -> list:
+    """One integer per tensor from its bits (int32 view, position-weighted
+    sum): equal tensors give equal digests."""
+    out = []
+    for t in tensors:
+        bits = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        out.append(int((bits * w).sum()))
+    return out
+
+
+def _lm_oracle_step(cfg, compress, state, batch, step_idx):
+    """One step of the one-process oracle from ``state`` (model, m, v):
+    each rank's gradient in turn on its rows, their float32 mean (plain:
+    the sum over ranks, then / R, as gloo sums two ranks; compressed: the
+    port's emulation of the int8 wire, one scale per ``stacked_groups``
+    group), the loss's mean, and AdamW as ``make_lm_train_step_ddp``."""
+    from repro_torch.launch.lm_train_step import _adamw_in_place, rank_rows, stacked_groups
+    from repro_torch.train.engine import _emulated_compressed_mean_ef
+
+    model, m, v = state
+    per_rank = [lm_value_and_grad(model, cfg, rank_rows(batch, r, LM_DDP_R))
+                for r in range(LM_DDP_R)]
+    loss = sum(l.to(torch.float32) for l, _ in per_rank) / LM_DDP_R
+    names = list(per_rank[0][1])
+    if compress:
+        grads = {}
+        for group in stacked_groups(cfg, names):
+            g = torch.stack([torch.stack([gr[n].to(torch.float32) for n in group])
+                             for _, gr in per_rank])
+            mean, _ = _emulated_compressed_mean_ef(g, torch.zeros_like(g))
+            grads.update(zip(group, mean.unbind(0)))
+    else:
+        grads = {n: sum(gr[n].to(torch.float32) for _, gr in per_rank) / LM_DDP_R for n in names}
+    _adamw_in_place(adamw(LM_LR, weight_decay=0.1), model, m, v, grads, step_idx)
+    return model, m, v, loss
+
+
+def lm_ddp_rank(cfg) -> int:
+    """One process of phase 13 (a) or (b) (``chip_smoke.py --lm-ddp-rank
+    CFG``), under phase 9's deterministic settings.  ``cfg["role"]`` is
+    ``"rank"`` (a gloo group of ``LM_DDP_R``, ``cfg["compress"]``'s run from
+    ``SEED``'s weights; rank 0 then holds every step against the oracle)
+    or ``"nccl"`` (a world of one: one plain DDP step against
+    ``make_lm_train_step``).  Writes ``cfg["out"]/rank<r>.json``."""
+    import repro_torch.launch.lm_train_step as lts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    torch.autograd.set_multithreading_enabled(False)
+    dev = torch.device(LM_DDP_DEVICE)
+    lm_cfg = get_lm_config(LM_DDP_ARCH)
+    backend = "gloo" if cfg["role"] == "rank" else "nccl"
+    initialize_distributed(backend=backend, timeout_s=DP_COLLECTIVE_TIMEOUT_S)
+    rank = dist.get_rank()
+    batches = _lm_ddp_batches(lm_cfg, dev)
+    out = Path(cfg["out"])
+
+    def fresh():
+        model = lm.init_params(lm_cfg, torch.Generator(dev).manual_seed(SEED), dev)
+        return [model, *init_opt_state(model)]
+
+    _reset_launches()
+    if cfg["role"] == "nccl":
+        batch = lts.rank_rows(batches[0], 0, LM_DDP_R)
+        want = fresh()
+        want_loss = make_lm_train_step(lm_cfg, lr=LM_LR)(*want, batch, 0)[3]
+        got = fresh()
+        got_loss = make_lm_train_step_ddp(lm_cfg, lr=LM_LR)(*got, batch, 0)[3]
+        n = _count_lm_states(got, want, 1)
+        (out / "rank0.json").write_text(json.dumps(dict(
+            loss=float(got_loss), want_loss=float(want_loss), counts=n, launches=_launches())))
+        dist.destroy_process_group()
+        return 0
+
+    timed_reduce = []
+    average = lts.average_gradients
+
+    def timed_average(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = average(*args, **kwargs)
+        end.record()
+        torch.cuda.synchronize()
+        timed_reduce.append(start.elapsed_time(end))
+        return res
+
+    lts.average_gradients = timed_average
+    compress = cfg["compress"]
+    state = fresh()
+    step = make_lm_train_step_ddp(lm_cfg, lr=LM_LR, compress=compress)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, saved = [], []
+    for i, batch in enumerate(batches):
+        if rank == 0:  # the step's own state, for the oracle after the run
+            saved.append([copy.deepcopy(state[0]).cpu(),
+                          *({k: t.cpu() for k, t in d.items()} for d in state[1:])])
+        dist.barrier()  # both ranks start the timed step together
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        model, m, v, loss, gnorm = step(*state, batch, i)
+        end.record()
+        torch.cuda.synchronize()
+        state = [model, m, v]
+        rows.append(dict(ms=start.elapsed_time(end), loss=float(loss), grad_norm=float(gnorm),
+                         allreduce_ms=timed_reduce[-1]))
+    peak = torch.cuda.max_memory_allocated()
+    digest = _bits_digest([p for _, p in state[0].named_parameters()]
+                          + list(state[1].values()) + list(state[2].values()))
+    oracle = []
+    if rank == 0:
+        def load(s):
+            return [s[0].to(dev), *({k: t.to(dev) for k, t in d.items()} for d in s[1:])]
+
+        for i, batch in enumerate(batches):
+            *want, want_loss = _lm_oracle_step(lm_cfg, compress, load(saved[i]), batch, i)
+            got = state if i == len(batches) - 1 else load(saved[i + 1])
+            oracle.append(dict(loss=float(want_loss), counts=_count_lm_states(got, want, i + 1)))
+    (out / f"rank{rank}.json").write_text(json.dumps(dict(
+        rows=rows, peak_bytes=peak, digest=digest, oracle=oracle, launches=_launches())))
+    dist.destroy_process_group()
+    return 0
+
+
+def _count_lm_states(got, want, step):
+    """``got`` (model, m, v) against ``want``: m and v beyond 2e-4
+    everywhere, the parameters beyond it where ``want``'s Adam denominator
+    sqrt(v_hat) is 0 or above ``ADAM_HELD_EPS`` eps (the rest counted)."""
+    n = dict(over=0, held=0, free=0, free_over=0, all=0, worst=0.0)
+    wparams = dict(want[0].named_parameters())
+    for name, p in got[0].named_parameters():
+        for g, w, mask in ((got[1][name], want[1][name], None), (got[2][name], want[2][name], None),
+                           (p.detach(), wparams[name].detach(), "adam")):
+            over = (g - w).abs() > LM_STEP_TOL + LM_STEP_TOL * w.abs()
+            if mask is None:
+                held = torch.ones_like(over)
+            else:
+                den = torch.sqrt(want[2][name] / (1 - ADAM_B2 ** step))
+                held = (den == 0) | (den > ADAM_HELD_EPS * ADAM_EPS)
+            n["over"] += int((over & held).sum())
+            n["held"] += int(held.sum())
+            n["free"] += int((~held).sum())
+            n["free_over"] += int((over & ~held).sum())
+            n["all"] += over.numel()
+            n["worst"] = max(n["worst"], float((g - w).abs().max()))
+    return n
+
+
+def _spawn_lm_ddp(root, name, n_procs, **cfg):
+    """Start one group of ``lm_ddp_rank`` processes; returns a function
+    that waits for it and reads each one's record."""
+    out = Path(root) / name
+    out.mkdir()
+    t0 = time.perf_counter()
+    group = spawn_local(n_procs, [sys.executable, str(Path(__file__).resolve()), "--lm-ddp-rank",
+                                  json.dumps(dict(cfg, out=str(out)))],
+                        env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}, log_dir=str(out / "logs"))
+
+    def wait():
+        codes = group.wait(timeout=LM_DDP_DEADLINE_S)
+        if codes != [0] * n_procs:
+            for p in group.procs:
+                print(f"{name} process {p.process_id} log tail:\n"
+                      f"{Path(p.log_path).read_text()[-4000:]}", flush=True)
+            raise AssertionError(f"{name}: processes exited {codes}")
+        print(f"{name}: {n_procs} process(es) done in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        return [json.loads((out / f"rank{r}.json").read_text()) for r in range(n_procs)]
+
+    return wait
+
+
+def lm_ddp(card):
+    """Phase 13 (a), the plain and the compressed group, and (b), all at
+    once (5 processes on the card)."""
+    with tempfile.TemporaryDirectory() as root:
+        waits = {mode: _spawn_lm_ddp(root, f"lm_ddp_{mode}", LM_DDP_R, role="rank",
+                                     compress=mode == "compressed")
+                 for mode in ("plain", "compressed")}
+        wait_nccl = _spawn_lm_ddp(root, "lm_ddp_nccl", 1, role="nccl")
+        runs = {mode: wait() for mode, wait in waits.items()}
+        (one,) = wait_nccl()
+    for mode, recs in runs.items():
+        losses = [[row["loss"] for row in rec["rows"]] for rec in recs]
+        if any(rec["digest"] != recs[0]["digest"] for rec in recs) or \
+                any(ls != losses[0] for ls in losses):
+            raise AssertionError(f"lm ddp {mode}: the ranks are not bit-identical replicas")
+        for r, rec in enumerate(recs):
+            ms = [row["ms"] for row in rec["rows"]]
+            print(f"lm ddp {mode} rank {r}: step_ms={[round(x, 1) for x in ms]} "
+                  f"allreduce_ms={[round(row['allreduce_ms'], 2) for row in rec['rows']]} "
+                  f"tokens_per_s={[round(LM_DDP_SEQ / (x / 1e3), 1) for x in ms]} "
+                  f"(one rank's {LM_DDP_SEQ}; the group's is {LM_DDP_R}x) "
+                  f"peak_memory_allocated_gb={rec['peak_bytes'] / 1e9:.2f} "
+                  f"losses={losses[r]}; card {card}", flush=True)
+        for i, (row, orc) in enumerate(zip(recs[0]["rows"], recs[0]["oracle"])):
+            err = abs(row["loss"] - orc["loss"]) / abs(orc["loss"])
+            n = orc["counts"]
+            print(f"lm ddp {mode} step {i} against the oracle from the step's state: loss "
+                  f"{row['loss']:.7f} vs {orc['loss']:.7f} (rel {err:.2e}, tol "
+                  f"{LM_DDP_LOSS_RTOL:g}); {n['over']} of {n['held']} held elements "
+                  f"beyond {LM_STEP_TOL:g}, {n['free']} not held (Adam near eps), "
+                  f"{n['free_over']} of them beyond; worst {n['worst']:.3e}", flush=True)
+            if err > LM_DDP_LOSS_RTOL or n["over"]:
+                raise AssertionError(f"lm ddp {mode} step {i} differs from the oracle")
+    err = abs(one["loss"] - one["want_loss"]) / abs(one["want_loss"])
+    n = one["counts"]
+    print(f"lm ddp nccl world of one: loss {one['loss']:.7f} vs make_lm_train_step's "
+          f"{one['want_loss']:.7f} (rel {err:.2e}); {n['over']} of {n['held']} held elements "
+          f"beyond {LM_STEP_TOL:g}, {n['free']} not held; card {card}", flush=True)
+    if err > LM_DDP_LOSS_RTOL or n["over"]:
+        raise AssertionError("the NCCL DDP step differs from make_lm_train_step")
+    return runs, [rec["launches"] for recs in runs.values() for rec in recs] + [one["launches"]]
+
+
+def dryrun_cells(card):
+    """Phase 13 (c): each of ``DRYRUN_CELLS`` as ``python -m
+    repro_torch.launch.dryrun`` (one fake world each), all at once, each
+    with its own results file."""
+    env = dict(os.environ, PYTHONPATH=str(SRC_DIR))
+    t0 = time.perf_counter()
+    recs = {}
+    with tempfile.TemporaryDirectory() as root:
+        procs = {}
+        for arch, shape, mesh in DRYRUN_CELLS:
+            path = Path(root) / f"{arch}-{shape}-{mesh}.json"
+            procs[(arch, shape, mesh)] = (path, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                 shape, "--mesh", mesh, "--results", str(path)], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for (arch, shape, mesh), (path, proc) in procs.items():
+            try:
+                _, err = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT_S - (
+                    time.perf_counter() - t0)))
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            rec = json.loads(path.read_text()).get(f"{arch}|{shape}|{mesh}") \
+                if path.exists() else None
+            if rec is None:
+                raise AssertionError(f"dryrun {arch} {shape} {mesh} recorded nothing: {err[-2000:]}")
+            coll = rec.get("collectives_per_device", {})
+            mem = rec.get("memory_per_device", {})
+            print(f"dryrun {arch} {shape} {mesh}: ok={rec['ok']} trace_s={rec.get('trace_s')} "
+                  f"wall_s={rec.get('wall_s')} argument_gb={mem.get('argument_gb')} (placements "
+                  f"{mem.get('argument_gb_from_placements')}) flops_per_device="
+                  f"{rec.get('cost_analysis', {}).get('flops')} collectives_per_device="
+                  f"{json.dumps(coll)} counts={json.dumps(rec.get('collective_counts'))} roofline="
+                  f"{json.dumps({k: v for k, v in rec.get('roofline', {}).items() if k != 'recommendation'})}"
+                  f"; card {card}", flush=True)
+            needed = coll.get("total", 0) if shape.startswith("decode") else coll.get("all-reduce", 0)
+            if (proc.returncode or not rec["ok"] or needed <= 0 or coll.get("total", 0) <= 0
+                    or rec["cost_analysis"]["flops"] <= 0
+                    or mem["argument_gb"] != mem["argument_gb_from_placements"]):
+                raise AssertionError(f"dryrun {arch} {shape} {mesh}: {rec.get('error')} {err[-2000:]}")
+            recs[(arch, shape, mesh)] = rec
+    print(f"dryrun cells, at once: {time.perf_counter() - t0:.1f}s", flush=True)
+    return recs
+
+
+def lm_multi_device_phase(card):
+    """Phase 13: (a) and (b) the DDP step, (c) the dry run.  Launches none
+    of the four CUDA kernels: every one of its processes (the DDP ranks,
+    the dry-run cells and this one) reports its counts, summed here."""
+    t0 = time.perf_counter()
+    _free_device_memory()
+    _reset_launches()
+    ranks, rank_launches = lm_ddp(card)
+    t1 = time.perf_counter()
+    recs = dryrun_cells(card)
+    counts = [_launches()] + rank_launches + [rec["kernel_launches"] for rec in recs.values()]
+    if any(set(c) != set(KERNELS) for c in counts):
+        raise AssertionError(f"a process of phase 13 did not report the four kernels: {counts}")
+    launches = {k: sum(c[k] for c in counts) for k in KERNELS}
+    if any(launches.values()):
+        raise AssertionError(f"the multi-device LM path launched MACE kernels: {counts}")
+    print(f"lm multi-device phase: {time.perf_counter() - t0:.1f}s ((a)+(b) {t1 - t0:.1f}s, "
+          f"(c) {time.perf_counter() - t1:.1f}s); MACE kernel launches {launches}, summed over "
+          f"its {len(counts)} processes ({len(rank_launches)} DDP, {len(recs)} dry-run, this "
+          f"one)", flush=True)
+    return ranks, recs
+
+
 def kernel_units():
     """(label, (source, header)) of the nine kernel libraries: the
     symmetric contraction's spec and both layers' tensor-product specs, each
@@ -2771,6 +3112,8 @@ def main() -> int:
         return dp_rank(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--elastic-run"]:
         return elastic_run(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--lm-ddp-rank"]:
+        return lm_ddp_rank(json.loads(sys.argv[2]))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2831,6 +3174,7 @@ def main() -> int:
           f"{tune_s:.1f}s", flush=True)
     elastic_launches = elastic_phase(card)
     lm_phase(card)
+    lm_multi_device_phase(card)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s")
     print(card)

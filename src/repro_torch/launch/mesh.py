@@ -1,7 +1,10 @@
-"""Process-group topology of the port's data-parallel engines.
+"""Process-group topology of the port's data-parallel engines, and the LM
+scaffold's device meshes.
 
 The ``torch.distributed`` counterpart of the JAX package's
-``launch/mesh.py`` ``make_dp_mesh`` and ``make_node_device_mesh``.  The
+``launch/mesh.py``: ``make_production_mesh``, ``dp_axes`` and
+``make_test_mesh`` as ``DeviceMesh``es (at the end of this module), and
+``make_dp_mesh`` and ``make_node_device_mesh`` as process groups.  The
 port runs one process per rank, so where the JAX engines shard one program
 over a device mesh, the port's engines reduce over process groups:
 
@@ -67,3 +70,50 @@ def make_node_device_groups(n_nodes: int, devices_per_node: int):
             if d == device:
                 node_group = g
     return device_group, node_group
+
+
+# --------------------------- device meshes ----------------------------------
+#
+# The LM scaffold's meshes, the counterpart of the JAX ``make_production_mesh``
+# / ``dp_axes`` / ``make_test_mesh``: a ``DeviceMesh`` over the current
+# process group (one process per device), with the JAX axis names.  The
+# sharding rules (``launch/sharding.py``) read the names and the sizes.
+
+PRODUCTION_MESHES = {
+    False: ((16, 16), ("data", "model")),
+    True: ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The 256-device ``(16, 16)`` ``("data", "model")`` mesh, or with
+    ``multi_pod`` the 512-device ``(2, 16, 16)`` ``("pod", "data",
+    "model")`` one, over the current world, which must hold exactly that
+    many processes.  The dry run builds it with ``device_type="cpu"`` over a
+    fake process group and places meta tensors on it."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    n = 1
+    for s in shape:
+        n *= s
+    _require_world(n)
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def dp_axes(mesh) -> tuple:
+    """The data-parallel mesh axes (pod folds into DP)."""
+    return ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)
+
+
+def make_test_mesh(shape=(2, 2), axes=("data", "model"), device_type: str = "cuda"):
+    """A small mesh over the current world (which must hold
+    ``prod(shape)`` processes): the CPU tests' ``(2, 2)`` over gloo
+    processes with ``device_type="cpu"``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = 1
+    for s in shape:
+        n *= s
+    _require_world(n)
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))

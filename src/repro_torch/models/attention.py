@@ -13,7 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .layers import chunked_attention, make_dense, rms_norm, rope
+from .layers import chunked_attention, make_dense, merge_dims, rms_norm, rope, split_dim
 
 Params = Dict[str, torch.Tensor]
 
@@ -44,9 +44,9 @@ def _project_qkv(p: Params, cfg, x, positions):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, hq, dh)
-    k = k.reshape(B, S, hkv, dh)
-    v = v.reshape(B, S, hkv, dh)
+    q = split_dim(q, 2, (hq, dh))
+    k = split_dim(k, 2, (hkv, dh))
+    v = split_dim(v, 2, (hkv, dh))
     if cfg.qk_norm:
         q = rms_norm(q, p["qnorm"])
         k = rms_norm(k, p["knorm"])
@@ -68,7 +68,7 @@ def attention_train(
         window=window, chunk=cfg.attn_chunk,
     )
     B, S = x.shape[:2]
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    out = merge_dims(out, 2, 2) @ p["wo"]
     if not return_kv:
         return out
 
@@ -108,5 +108,5 @@ def attention_decode(
         q_positions=positions, kv_positions=kv_pos, kv_valid=kv_valid,
         window=window, chunk=cfg.attn_chunk,
     )
-    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    out = merge_dims(out, 2, 2) @ p["wo"]
     return out, cache_k, cache_v

@@ -15,11 +15,55 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, torch.Tensor]
 
 NEG_INF = -1e30
+
+
+def split_dim(x: torch.Tensor, dim: int, sizes) -> torch.Tensor:
+    """``x`` with dim ``dim`` reshaped into ``sizes`` (heads, head dim).
+    On a DTensor, a mesh dim that shards ``dim`` but does not divide
+    ``sizes[0]`` is gathered first (8 KV heads sharded 16 ways): DTensor's
+    view cannot split a dim sharded that way without it (torch 2.11)."""
+    dim = dim % x.dim()
+    if isinstance(x, DTensor):
+        placements, n = list(x.placements), 1
+        for i, p in enumerate(placements):
+            if p.is_shard(dim):
+                if sizes[0] % (n * x.device_mesh.size(i)):
+                    placements[i] = Replicate()
+                else:
+                    n *= x.device_mesh.size(i)
+        if placements != list(x.placements):
+            x = x.redistribute(x.device_mesh, placements)
+    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
+class _Merge(torch.autograd.Function):
+    """``flatten`` of dims ``dim .. dim + len(sizes) - 1`` whose backward
+    splits the gradient with :func:`split_dim`."""
+
+    @staticmethod
+    def forward(ctx, x, dim, sizes):
+        ctx.dim, ctx.sizes = dim, sizes
+        return x.flatten(dim, dim + len(sizes) - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_dim(g, ctx.dim, ctx.sizes), None, None
+
+
+def merge_dims(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` with dims ``dim .. dim + n - 1`` merged into one (heads and
+    head dim).  The gradient of a merge splits the merged dim, which may
+    arrive sharded by a mesh dim that does not divide the first part: on a
+    DTensor the split is :func:`split_dim`'s."""
+    if not isinstance(x, DTensor):
+        return x.flatten(dim, dim + n - 1)
+    return _Merge.apply(x, dim, tuple(x.shape[dim:dim + n]))
 
 
 def make_dense(gen: torch.Generator, d_in: int, d_out: int, dtype=torch.float32,
@@ -101,7 +145,7 @@ def chunked_attention(
     B, Sq, Hq, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     rep = Hq // Hkv
-    q_ = (q * (1.0 / math.sqrt(dh))).reshape(B, Sq, Hkv, rep, dh)
+    q_ = split_dim(q * (1.0 / math.sqrt(dh)), 2, (Hkv, rep))
 
     if Sq == 1:
         # decode: one pass over the whole cache
@@ -110,7 +154,7 @@ def chunked_attention(
         logits = logits.masked_fill(~mask[:, :, None, None, :], NEG_INF)
         p = torch.softmax(logits, dim=-1)
         out = torch.einsum("bqhrc,bchd->bqhrd", p.to(v.dtype), v)
-        return out.reshape(B, Sq, Hq, dh).to(q.dtype)
+        return merge_dims(out, 2, 2).to(q.dtype)
 
     chunk = min(chunk, Skv)
     n_chunks = -(-Skv // chunk)
@@ -141,7 +185,7 @@ def chunked_attention(
         else:
             acc, m, s = _chunk_step(*args)
     out = acc / torch.clamp(s[..., None], min=1e-30)
-    return out.reshape(B, Sq, Hq, dh).to(q.dtype)
+    return merge_dims(out, 2, 2).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

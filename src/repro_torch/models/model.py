@@ -21,9 +21,13 @@ layer order, and the functions keep the JAX names:
 Parameters are stored in ``param_dtype`` and cast to ``compute_dtype`` one
 group at a time, inside the group's checkpoint (the JAX ``_cast_seg``).
 Token ids must be below ``vocab``: the JAX ``jnp.take`` gives NaN rows for
-larger ones, the embedding here raises.  The activation-sharding hooks of
-the JAX module (``set_activation_sharding``) belong to the multi-device
-half of the port.
+larger ones, the embedding here raises.
+
+``set_activation_sharding`` is the JAX module's activation constraint:
+where the residual stream is a DTensor (parameters placed by
+``launch/sharding.py``), it is redistributed to the given placements at
+the start of every layer group, as the JAX scan bodies constrain it; on
+plain tensors it changes nothing.
 """
 from __future__ import annotations
 
@@ -34,10 +38,12 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from .attention import _project_qkv, attention_train, init_attention
-from .layers import apply_swiglu, chunked_attention, init_swiglu, make_dense, normal, rms_norm
+from .layers import (apply_swiglu, chunked_attention, init_swiglu, make_dense, merge_dims,
+                     normal, rms_norm)
 from .mamba import init_mamba, init_mamba_state, mamba_decode, mamba_train
 from .moe import apply_moe, init_moe
 from .xlstm import (
@@ -53,6 +59,41 @@ from .xlstm import (
 
 Params = Dict[str, Any]
 State = List[Dict[str, torch.Tensor]]     # one dict per layer
+
+# Optional activation-sharding constraint (set by the launcher/dry-run):
+# pins the residual stream [B, S, d] so DTensor gathers FSDP weights instead
+# of resharding activations at every layer group.
+_ACT_SHARDING = None
+
+
+def set_activation_sharding(placements) -> None:
+    """The residual stream's placements (one per mesh dim), or ``None``."""
+    global _ACT_SHARDING
+    _ACT_SHARDING = None if placements is None else tuple(placements)
+
+
+def _lookup(tokens, table):
+    """``F.embedding``.  On a DTensor table, its FSDP shards (any dim but
+    the vocab's) are gathered first, as FSDP gathers a weight before use
+    (DTensor's lookup over a table sharded on the embedding dim by the axis
+    that also shards the tokens' batch builds a mask of the wrong shape);
+    the lookup over a vocab-sharded table leaves a pending masked sum,
+    which DTensor reduces once: it is reduced here, before a checkpointed
+    group's recompute would reduce it again."""
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    vocab_only = [p if p.is_shard(0) else Replicate() for p in table.placements]
+    x = F.embedding(tokens, table.redistribute(table.device_mesh, vocab_only))
+    if any(p.is_partial() for p in x.placements):
+        x = x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                           for p in x.placements])
+    return x
+
+
+def _constrain(x):
+    if _ACT_SHARDING is not None and isinstance(x, DTensor):
+        return x.redistribute(x.device_mesh, _ACT_SHARDING)
+    return x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -287,6 +328,7 @@ def _run_segments(cfg: ArchConfig, params: LM, x, positions, segments, train: bo
     aux_total = x.new_zeros(())
     for group in cfg.groups():
         def run(x, group=group):
+            x = _constrain(x)
             aux = x.new_zeros(())
             for i in group:
                 blk = params.layers[i]
@@ -304,7 +346,7 @@ def _run_segments(cfg: ArchConfig, params: LM, x, positions, segments, train: bo
 
 
 def _embed(cfg: ArchConfig, params: LM, tokens, prefix_embeds):
-    x = F.embedding(tokens, params.embed).to(cfg.compute_dtype)
+    x = _lookup(tokens, params.embed).to(cfg.compute_dtype)
     if cfg.n_prefix_embeds and prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(cfg.compute_dtype), x[:, prefix_embeds.shape[1]:]], dim=1)
     return x
@@ -313,8 +355,15 @@ def _embed(cfg: ArchConfig, params: LM, tokens, prefix_embeds):
 def _chunk_loss(nll_sum, n_valid, xh, lab, head):
     logits = (xh @ head).to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
-    # the JAX one-hot contraction picks the same logit exactly
-    gold = logits.gather(-1, torch.clamp(lab, min=0).long()[..., None])[..., 0]
+    idx = torch.clamp(lab, min=0).long()
+    if isinstance(logits, DTensor):
+        # DTensor's gather over a vocab-sharded dim leaves a masked partial
+        # it cannot reduce; the JAX one-hot contraction picks the same logit
+        hot = idx[..., None] == torch.arange(logits.shape[-1], device=idx.device)
+        gold = torch.sum(logits * hot.to(logits.dtype), dim=-1)
+    else:
+        # the JAX one-hot contraction picks the same logit exactly
+        gold = logits.gather(-1, idx[..., None])[..., 0]
     valid = (lab >= 0).to(torch.float32)
     nll = (logz - gold) * valid
     return nll_sum + nll.sum(), n_valid + valid.sum()
@@ -401,10 +450,13 @@ def forward_prefill(
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
     x = _embed(cfg, params, tokens, prefix_embeds)
     state: State = []
-    for blk in params.layers:
-        x, st = _apply_block_collect(blk.cast(cfg.compute_dtype), cfg, blk.mixer, blk.ff_kind,
-                                     x, positions)
-        state.append(st)
+    for group in cfg.groups():
+        x = _constrain(x)
+        for i in group:
+            blk = params.layers[i]
+            x, st = _apply_block_collect(blk.cast(cfg.compute_dtype), cfg, blk.mixer,
+                                         blk.ff_kind, x, positions)
+            state.append(st)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = (x[:, -1] @ params.head.to(cfg.compute_dtype)).to(torch.float32)
     return logits, state
@@ -451,10 +503,13 @@ def decode_step(
     pos,                    # int or int32 scalar tensor: the current absolute position
 ) -> Tuple[torch.Tensor, State]:
     """One token for the whole batch.  Returns (logits [B, V], new_state)."""
-    x = F.embedding(tokens, params.embed).to(cfg.compute_dtype)
+    x = _lookup(tokens, params.embed).to(cfg.compute_dtype)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
     new_state: State = []
-    for blk, s in zip(params.layers, state):
+    first = {g[0] for g in cfg.groups()}
+    for i, (blk, s) in enumerate(zip(params.layers, state)):
+        if i in first:
+            x = _constrain(x)
         p = blk.cast(cfg.compute_dtype)
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         if blk.mixer in ("attn", "swa"):
@@ -481,14 +536,22 @@ def _attn_decode_ring(p, cfg, x, pos, slot, cache, window):
     B = x.shape[0]
     positions = pos.expand(B, 1)
     q, k, v = _project_qkv(p, cfg, x, positions)
-    at = slot.reshape(1).long()
-    ck = cache["k"].index_copy(1, at, k.to(cache["k"].dtype))
-    cv = cache["v"].index_copy(1, at, v.to(cache["v"].dtype))
-    cp = cache["pos"].index_copy(1, at, positions)
+    if isinstance(cache["k"], DTensor):
+        # no DTensor strategy for index_copy (torch 2.11): the same write
+        # as a select over the slots
+        hit = torch.arange(cache["k"].shape[1], device=slot.device) == slot
+        ck = torch.where(hit[None, :, None, None], k.to(cache["k"].dtype), cache["k"])
+        cv = torch.where(hit[None, :, None, None], v.to(cache["v"].dtype), cache["v"])
+        cp = torch.where(hit[None, :], positions, cache["pos"])
+    else:
+        at = slot.reshape(1).long()
+        ck = cache["k"].index_copy(1, at, k.to(cache["k"].dtype))
+        cv = cache["v"].index_copy(1, at, v.to(cache["v"].dtype))
+        cp = cache["pos"].index_copy(1, at, positions)
     out = chunked_attention(
         q, ck, cv,
         q_positions=positions, kv_positions=cp, kv_valid=cp >= 0,
         window=window, chunk=cfg.attn_chunk,
     )
-    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    out = merge_dims(out, 2, 2) @ p["wo"]
     return out, {"k": ck, "v": cv, "pos": cp}

@@ -8,8 +8,12 @@ sequence-chunk groups of about ``group_size`` tokens.
 
 Top-k is the first ``k`` of a stable descending sort: ``jax.lax.top_k``
 breaks ties toward the lower expert index, and ``torch.topk`` promises no
-order among ties.  The JAX module's expert-parallel sharding hooks
-(``set_ep_sharding``) belong to the multi-device half of the port.
+order among ties.
+
+``set_ep_sharding`` is the JAX module's expert-parallel constraint: where
+the dispatched tokens ``xe``, the expert outputs ``ye`` and the expert
+weights are DTensors, they are redistributed to the given placements (on
+plain tensors nothing changes).
 """
 from __future__ import annotations
 
@@ -18,10 +22,41 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from .layers import make_dense, normal
 
 Params = Dict[str, torch.Tensor]
+
+# Optional expert-parallel constraint on the dispatched/expert-side tensors
+# (set by the launcher): pins xe/ye (and the expert weights) to 'model'-on-E
+# placements, so the token(dp) <-> expert(model) boundary is one reshard
+# instead of repeated gathers.
+_EP_SHARDING = None
+_MOE_WEIGHT_SHARDING = None
+
+
+def set_ep_sharding(ep, weight=None) -> None:
+    """Placements of ``xe``/``ye`` and of the expert weights, or ``None``."""
+    global _EP_SHARDING, _MOE_WEIGHT_SHARDING
+    _EP_SHARDING = None if ep is None else tuple(ep)
+    _MOE_WEIGHT_SHARDING = None if weight is None else tuple(weight)
+
+
+def _redistribute(t, placements):
+    if placements is not None and isinstance(t, DTensor):
+        return t.redistribute(t.device_mesh, placements)
+    return t
+
+
+def _ep_constrain(t):
+    return _redistribute(t, _EP_SHARDING)
+
+
+def _weight_constrain(w):
+    """Pin the layer's expert weights to their 'model'-on-E placements:
+    their FSDP dim is gathered once per layer, not once per token group."""
+    return _redistribute(w, _MOE_WEIGHT_SHARDING)
 
 
 def init_moe(gen: torch.Generator, cfg, dtype=torch.float32, device=None) -> Params:
@@ -79,10 +114,12 @@ def _moe_group(p: Params, cfg, xt: torch.Tensor, capacity_factor: float):
 
     # dispatch: gather token rows (the padding row Tg is zeros)
     xt_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    xe = xt_pad[token_for_slot]                               # [E, C, d]
-    h = F.silu(torch.einsum("ecd,edf->ecf", xe, p["wg"])) * torch.einsum(
-        "ecd,edf->ecf", xe, p["wi"])
-    ye = torch.einsum("ecf,efd->ecd", h, p["wo"])              # [E, C, d]
+    xe = _ep_constrain(xt_pad[token_for_slot])                # [E, C, d]
+    wg = _weight_constrain(p["wg"])
+    wi = _weight_constrain(p["wi"])
+    wo = _weight_constrain(p["wo"])
+    h = F.silu(torch.einsum("ecd,edf->ecf", xe, wg)) * torch.einsum("ecd,edf->ecf", xe, wi)
+    ye = _ep_constrain(torch.einsum("ecf,efd->ecd", h, wo))  # [E, C, d]
 
     # combine: each token gathers its k slots back
     ye_flat = ye.reshape(E * C, d)

@@ -14,8 +14,9 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from .layers import make_dense, normal, rms_norm
+from .layers import make_dense, merge_dims, normal, rms_norm, split_dim
 
 Params = Dict[str, torch.Tensor]
 
@@ -49,12 +50,22 @@ def _mlstm_qkvgates(p: Params, cfg, x):
     B, S, d = x.shape
     H = cfg.n_heads
     dh = d // H
-    q = (x @ p["wq"]).reshape(B, S, H, dh) / math.sqrt(dh)
-    k = (x @ p["wk"]).reshape(B, S, H, dh)
-    v = (x @ p["wv"]).reshape(B, S, H, dh)
+    q = split_dim(x @ p["wq"], 2, (H, dh)) / math.sqrt(dh)
+    k = split_dim(x @ p["wk"], 2, (H, dh))
+    v = split_dim(x @ p["wv"], 2, (H, dh))
     li = (x @ p["wi"] + p["bi"]).to(torch.float32)               # [B, S, H]
-    lf = F.logsigmoid((x @ p["wf"] + p["bf"]).to(torch.float32))
+    lf = _log_sigmoid((x @ p["wf"] + p["bf"]).to(torch.float32))
     return q, k, v, li, lf
+
+
+def _log_sigmoid(z):
+    """``F.logsigmoid``, whose backward has no DTensor sharding strategy;
+    on a DTensor the same function from pointwise ops, ``min(z, 0) -
+    log1p(exp(-|z|))`` (within an ulp of it: the plain path's numbers are
+    untouched)."""
+    if isinstance(z, DTensor):
+        return torch.clamp(z, max=0) - torch.log1p(torch.exp(-torch.abs(z)))
+    return F.logsigmoid(z)
 
 
 def _mlstm_chunk(carry, qc, kc, vc, lic, lfc):
@@ -80,9 +91,12 @@ def _mlstm_chunk(carry, qc, kc, vc, lic, lfc):
     kh = kc.permute(0, 2, 1, 3)
     vh = vc.permute(0, 2, 1, 3)
     scores = torch.einsum("bhtd,bhsd->bhts", qh, kh) * D      # [B, H, c, c]
-    num = torch.einsum("bhts,bhsd->bhtd", scores, vh) + inter[..., None] * torch.einsum(
-        "bhtd,bhde->bhte", qh, C_p)
-    den = scores.sum(-1) + inter * torch.einsum("bhtd,bhd->bht", qh, n_p)
+    # float32 against a bf16 operand: the operand is widened, as jnp.einsum
+    # promotes (a no-op at float32 compute)
+    q32, k32, v32 = (t.to(torch.float32) for t in (qh, kh, vh))
+    num = torch.einsum("bhts,bhsd->bhtd", scores, v32) + inter[..., None] * torch.einsum(
+        "bhtd,bhde->bhte", q32, C_p)
+    den = scores.sum(-1) + inter * torch.einsum("bhtd,bhd->bht", q32, n_p)
     h = num / torch.maximum(torch.abs(den), torch.exp(-m_new))[..., None]
 
     # carry update (the recurrent form evaluated at the chunk's end)
@@ -90,9 +104,9 @@ def _mlstm_chunk(carry, qc, kc, vc, lic, lfc):
     b_end = g[:, :, -1]                                       # [B, H]
     w_state = torch.exp(b_end[:, :, None] - g + a_t - m_c[:, :, None])
     C_n = torch.exp(b_end + m_p - m_c)[..., None, None] * C_p + torch.einsum(
-        "bhs,bhsd,bhse->bhde", w_state, kh, vh)
+        "bhs,bhsd,bhse->bhde", w_state, k32, v32)
     n_n = torch.exp(b_end + m_p - m_c)[..., None] * n_p + torch.einsum(
-        "bhs,bhsd->bhd", w_state, kh)
+        "bhs,bhsd->bhd", w_state, k32)
     return (C_n, n_n, m_c), h.permute(0, 2, 1, 3)             # [B, c, H, dh]
 
 
@@ -117,7 +131,7 @@ def mlstm_train(p: Params, cfg, x: torch.Tensor, chunk: int = 256,
         hs.append(h)
     h = torch.cat(hs, dim=1).to(x.dtype)                      # [B, S, H, dh]
     h = rms_norm(h, p["out_norm"])
-    h = h.reshape(B, S, d) * torch.sigmoid(x @ p["wo_gate"])
+    h = merge_dims(h, 2, 2) * torch.sigmoid(x @ p["wo_gate"])
     out = h @ p["w_out"]
     if return_state:
         C_f, n_f, m_f = carry
@@ -146,11 +160,12 @@ def mlstm_decode(p: Params, cfg, x, state) -> Tuple[torch.Tensor, Dict]:
     C = decay[..., None, None] * state["C"] + inject[..., None, None] * (
         k[..., :, None] * v[..., None, :])
     n = decay[..., None] * state["n"] + inject[..., None] * k
-    num = torch.einsum("bhd,bhde->bhe", q, C)
-    den = torch.einsum("bhd,bhd->bh", q, n)
+    q32 = q.to(torch.float32)                                 # as jnp.einsum promotes
+    num = torch.einsum("bhd,bhde->bhe", q32, C)
+    den = torch.einsum("bhd,bhd->bh", q32, n)
     h = num / torch.maximum(torch.abs(den), torch.exp(-m_new))[..., None]
-    h = rms_norm(h.to(x.dtype), p["out_norm"])
-    h = h.reshape(B, 1, d) * torch.sigmoid(x @ p["wo_gate"])
+    h = rms_norm(h.to(x.dtype), p["out_norm"])                # [B, H, dh]
+    h = merge_dims(h, 1, 2).reshape(B, 1, d) * torch.sigmoid(x @ p["wo_gate"])
     return h @ p["w_out"], {"C": C, "n": n, "m": m_new}
 
 
@@ -185,7 +200,7 @@ def _slstm_step(p: Params, cfg, xw, state):
     dh = d // H
     h_p, c_p, n_p, m_p = state
     rec = torch.einsum("bhd,ghde->gbhe", h_p, p["r"])         # [4, B, H, dh]
-    pre = xw.reshape(B, 4, H, dh).permute(1, 0, 2, 3) + rec
+    pre = split_dim(xw, 1, (4, H, dh)).permute(1, 0, 2, 3) + rec
     z = torch.tanh(pre[0])
     i_t = pre[1].to(torch.float32)
     f_t = pre[2].to(torch.float32)
@@ -200,7 +215,8 @@ def _slstm_step(p: Params, cfg, xw, state):
 
 
 def _slstm_out(p: Params, h: torch.Tensor, B: int, S: int, d: int) -> torch.Tensor:
-    h = rms_norm(h, p["out_norm"]).reshape(B, S, d)
+    h = rms_norm(h, p["out_norm"])                            # [B, S, H, dh] or [B, H, dh]
+    h = merge_dims(h, h.dim() - 2, 2).reshape(B, S, d)
     up = h @ p["up"]
     ff = up.shape[-1] // 2
     y = F.gelu(up[..., :ff], approximate="tanh") * up[..., ff:]

@@ -1,11 +1,12 @@
 """Analytic FLOP / HBM-byte cells: one kernel call per (kind, impl), the
 autotuner's ranking for shapes with no measured trajectory row
-(``kernels.autotune``), and one LM cell per (arch, shape).
+(``kernels.autotune``), one LM cell per (arch, shape) and the MACE
+training cell of the dry run.
 
-Port of ``kernel_cell_cost``, ``lm_cell_cost`` and ``_avg_causal_kv`` of
-the JAX package's ``roofline/analytic.py`` (its whole-model MACE cost model
-is not ported), on the port's own copies of the CG, tensor-product and
-symmetric-contraction tables.  The
+Port of ``kernel_cell_cost``, ``lm_cell_cost``, ``_avg_causal_kv`` and
+``mace_cell_cost`` of the JAX package's ``roofline/analytic.py``, on the
+port's own copies of the CG, tensor-product and symmetric-contraction
+tables.  The
 JAX impl ``pallas`` is the port's ``cuda`` (``bridge.JAX_IMPL_NAMES``), so
 the kernel branch prices ``cuda`` the way the JAX one prices ``pallas``:
 
@@ -225,4 +226,100 @@ def lm_cell_cost(cfg, shape: Dict[str, Any]) -> Dict[str, float]:
         "params_total": float(p_total),
         "params_active": float(p_active),
         "n_attn_layers": float(n_attn),
+    }
+
+
+# --------------------------- MACE --------------------------------------------
+
+
+def mace_cell_cost(
+    mace_cfg, n_bins: int, capacity: int, edge_factor: int,
+    *, fused: bool = True, bf16: bool = False,
+) -> Dict[str, float]:
+    """Per-step cost for MACE training on ``n_bins`` bins (DP units).
+
+    ``fused=False`` models the stock e3nn-style baseline (paper Observation
+    3): dense CG/U einsums (no sparsity exploited) and every per-path /
+    per-(L,nu) intermediate round-tripping HBM.  ``fused=True`` models the
+    sparse-table kernel pipeline: compile-time nonzeros only, intermediates
+    on chip (inputs read once, outputs written once).  ``bf16`` halves
+    compute-byte traffic and runs at the bf16 peak.  The JAX package's
+    arithmetic, float for float.
+    """
+    from repro_torch.core.cg import u_tensor
+    from repro_torch.core.channelwise_tp import build_tp_tables
+    from repro_torch.core.irreps import dim_l
+    from repro_torch.core.symmetric_contraction import symcon_flops
+
+    k = mace_cfg.channels
+    N = n_bins * capacity
+    E = n_bins * capacity * edge_factor
+    cb = 2.0 if bf16 else 4.0   # compute bytes/elt
+
+    fwd = 0.0
+    traffic = 0.0
+    for t in range(mace_cfg.n_interactions):
+        tp = mace_cfg.tp_spec_at(t)
+        tables = build_tp_tables(tp)
+        if fused:
+            fwd += E * k * len(tables.val) * 4.0       # sparse nnz
+            fwd += E * k * tp.out_spec.dim * 2.0       # scatter(one-hot mm)
+            # inputs read once, A written once (on-chip intermediates)
+            traffic += (E * (tp.y_spec.dim + k * tp.h_spec.dim + k * tp.n_paths)
+                        + N * k * tp.out_spec.dim) * cb
+        else:
+            # dense per-path einsum chain: C[d1,d2,d3] contracted densely,
+            # each path's [E,k,d3] block round-trips HBM
+            for (l1, l2, l3) in tp.paths:
+                d1, d2, d3 = dim_l(l1), dim_l(l2), dim_l(l3)
+                fwd += 2.0 * E * k * d1 * d2 * d3
+                traffic += (E * k * (d2 + 2 * d3) + E * d1) * cb
+            traffic += N * k * tp.out_spec.dim * cb    # scatter output
+        # radial MLP (same either way)
+        dims = (mace_cfg.num_bessel, *mace_cfg.radial_mlp, tp.n_paths * k)
+        for a, b in zip(dims[:-1], dims[1:]):
+            fwd += 2.0 * E * a * b
+        traffic += E * dims[-1] * cb
+        # per-l linears (up, A, msg)
+        h_dim = mace_cfg.h_spec_at(t).dim
+        fwd += 2.0 * N * k * k * (
+            h_dim + mace_cfg.a_spec.dim + mace_cfg.hidden_spec.dim
+        )
+        traffic += 2.0 * N * k * (
+            h_dim + mace_cfg.a_spec.dim + mace_cfg.hidden_spec.dim
+        ) * cb
+        # symmetric contraction
+        sc = mace_cfg.symcon_spec()
+        if fused:
+            fwd += symcon_flops(sc, N, k)
+            traffic += N * k * (sc.in_spec.dim + sc.out_spec.dim) * cb
+        else:
+            for (L, nu) in sc.terms():
+                U = u_tensor(tuple(sc.in_spec.ls), L, nu)
+                fwd += 2.0 * N * k * U.size            # dense U contract
+                # each (L, nu) term's intermediates round-trip
+                traffic += N * k * (
+                    nu * sc.in_spec.dim + 2 * (2 * L + 1)
+                ) * cb
+        fwd += 2.0 * N * k * k  # skip connection
+        traffic += N * k * 2 * cb
+    fwd += 2.0 * N * k  # readouts (approx)
+
+    # forces = grad wrt positions inside the loss -> roughly 7x fwd for a
+    # full training step (fwd + force-grad graph + bwd through it)
+    flops = fwd * 7.0
+    traffic = traffic * 7.0
+
+    params = 4.0 * (  # rough fp32 param bytes
+        mace_cfg.n_species * k
+        + mace_cfg.n_interactions * (3 * k * k * 4 + 64 * 64 * 3 + 2000 * k)
+    )
+    return {
+        "flops": float(flops),
+        "hbm_bytes": float(params * 9 + traffic),
+        "model_flops": float(fwd * 7.0),
+        "tokens": float(N),
+        "params_total": float(params / 4.0),
+        "params_active": float(params / 4.0),
+        "n_attn_layers": 0.0,
     }

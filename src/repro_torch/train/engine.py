@@ -452,6 +452,21 @@ class SequentialEngine(_Engine):
         return apply_updates(params, updates), opt_state, ef_state, metrics
 
 
+def flat_mean(flat: Dict[str, torch.Tensor], group, n: int) -> Dict[str, torch.Tensor]:
+    """Plain mean of every tensor of ``flat`` over ``group`` (``n``
+    ranks), through one flat buffer; the identity for one rank."""
+    if n == 1:
+        return flat
+    buf = torch.cat([t.reshape(-1) for t in flat.values()])
+    all_reduce_(buf, dist.ReduceOp.SUM, group)
+    buf /= n
+    out, at = {}, 0
+    for k, t in flat.items():
+        out[k] = buf[at:at + t.numel()].view_as(t)
+        at += t.numel()
+    return out
+
+
 class DataParallelEngine(_Engine):
     """One process per rank on a flat group: each process takes the
     gradients of its own bin and all-reduces them (see the module
@@ -486,20 +501,6 @@ class DataParallelEngine(_Engine):
         """Cross-process sync point (the checkpoint commit protocol)."""
         dist.barrier()
 
-    def _mean(self, flat: Dict[str, torch.Tensor], group, n: int) -> Dict[str, torch.Tensor]:
-        """Plain mean of every tensor of ``flat`` over ``group`` (``n``
-        ranks), through one flat buffer; the identity for one rank."""
-        if n == 1:
-            return flat
-        buf = torch.cat([t.reshape(-1) for t in flat.values()])
-        all_reduce_(buf, dist.ReduceOp.SUM, group)
-        buf /= n
-        out, at = {}, 0
-        for k, t in flat.items():
-            out[k] = buf[at:at + t.numel()].view_as(t)
-            at += t.numel()
-        return out
-
     def _compressed(self, flat, ef_state, group, group_size=None):
         """``compressed_allreduce_ef`` of every tensor of ``flat``, with
         the ``[1, ...]`` residuals of ``ef_state``."""
@@ -514,7 +515,7 @@ class DataParallelEngine(_Engine):
         """The gradients' mean over the ranks, and the new residuals."""
         if self.compress:
             return self._compressed(grads, ef_state, self.group)
-        return self._mean(grads, self.group, self.n_ranks), ef_state
+        return flat_mean(grads, self.group, self.n_ranks), ef_state
 
     def _gather(self, values: Sequence[float]) -> np.ndarray:
         """``[R, len(values)]``: every rank's ``values``, in rank order."""
@@ -529,7 +530,7 @@ class DataParallelEngine(_Engine):
         grads, metrics, seconds = self._timed_grads(params, batch)
         with torch.no_grad():
             grads, ef_state = self.reduce_grads(grads, ef_state)
-            metrics = self._mean(metrics, None, self.process_count)
+            metrics = flat_mean(metrics, None, self.process_count)
         updates, opt_state = self.optimizer.update(unflatten(grads), opt_state, params, step)
         rows = self._gather([seconds, float(batch["node_mask"].sum())])
         self.telemetry.record(rows[:, 0], rows[:, 1])
@@ -555,12 +556,12 @@ class MultiHostEngine(DataParallelEngine):
 
     def reduce_grads(self, grads: Dict[str, torch.Tensor], ef_state):
         # level 1: the mean inside the node, unquantised
-        grads = self._mean(grads, self.device_group, self.devices_per_node)
+        grads = flat_mean(grads, self.device_group, self.devices_per_node)
         # level 2: across nodes; the residual is per node
         if self.compress:
             return self._compressed(grads, ef_state, self.node_group,
                                     group_size=self.n_nodes)
-        return self._mean(grads, self.node_group, self.n_nodes), ef_state
+        return flat_mean(grads, self.node_group, self.n_nodes), ef_state
 
 
 ENGINES = {

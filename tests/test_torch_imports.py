@@ -57,6 +57,8 @@ def test_port_modules_import_no_jax_and_no_repro():
             "repro_torch.models.model", "repro_torch.data.sequence_pack",
             "repro_torch.launch.lm_train_step", "repro_torch.launch.lm_pretrain",
             "repro_torch.launch.serve", "repro_torch.serve.lm_engine",
+            "repro_torch.launch.shapes", "repro_torch.launch.sharding",
+            "repro_torch.launch.dryrun", "repro_torch.roofline.collectives",
             "repro_torch.kernels.symmetric_contraction.ref",
             "repro_torch.kernels.channelwise_tp.ref"]
     proc = _run("".join(f"import {m}\n" for m in mods) + _FORBIDDEN_CHECK)

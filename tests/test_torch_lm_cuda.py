@@ -75,3 +75,39 @@ def test_a_batch_of_another_shape_raises_and_captures_nothing(dev):
     eng.close()
     with pytest.raises(RuntimeError, match="no captured graph"):
         eng.decode(16)
+
+
+def test_ddp_step_in_a_world_of_one_is_the_plain_step(dev, tmp_path):
+    """``make_lm_train_step_ddp`` in an NCCL world of one (whose plain
+    mean issues no collective) against ``make_lm_train_step`` on the same
+    state and batch (REDUCED xlstm, fp32): the same loss, m and v within
+    2e-4, the parameters within 2e-4 where Adam is well conditioned
+    (sqrt(v_hat) 0 or above 100 eps)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.lm_train_step import (
+        init_opt_state, make_lm_train_step, make_lm_train_step_ddp,
+    )
+    from repro_torch.launch.multihost import initialize_distributed
+
+    cfg = get_reduced("xlstm_125m")
+    model = init_params(cfg, torch.Generator().manual_seed(0)).to(dev)
+    rng = np.random.default_rng(0)
+    tok = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 32)).astype(np.int32)).to(dev)
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    plain = copy.deepcopy(model)
+    pm, pv = init_opt_state(plain)
+    plain, pm, pv, ploss, _ = make_lm_train_step(cfg, lr=1e-3)(plain, pm, pv, batch, 0)
+    initialize_distributed(f"file://{tmp_path}/store", 1, 0, backend="nccl")
+    try:
+        m, v = init_opt_state(model)
+        model, m, v, loss, _ = make_lm_train_step_ddp(cfg, lr=1e-3)(model, m, v, batch, 0)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(float(loss), float(ploss), rtol=1e-6)
+    want = dict(plain.named_parameters())
+    for n, p in model.named_parameters():
+        torch.testing.assert_close(m[n], pm[n], rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(v[n], pv[n], rtol=2e-4, atol=2e-4)
+        held = (torch.sqrt(pv[n] / (1 - 0.999)) == 0) | (torch.sqrt(pv[n] / (1 - 0.999)) > 1e-6)
+        torch.testing.assert_close(p.detach()[held], want[n].detach()[held], rtol=2e-4, atol=2e-4)

@@ -25,8 +25,9 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    CUDA events per call (``ms`` and ``plain_ms``, the wrapper's host work
    included); time the dense-U einsum baseline ``symcon_ref`` on the
    symmetric contraction's inputs (``library_ms``: its einsums, and its
-   ``torch.autograd.grad`` for the backward) after checking that it
-   computes what the fp32 kernels compute; run all four kernels at every
+   ``torch.autograd.grad`` for the backward; for the bf16 and fp8 builds on
+   the operands rounded as they round them) after checking that it
+   computes what the kernels compute; run all four kernels at every
    precision, checked the same way, at the training capacity of 3,072 atoms
    too, on the edge blocking of the training run's first bin (the
    interaction kernels at both layers); and the interaction kernels as the
@@ -200,12 +201,18 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    in an NCCL world of one against ``make_lm_train_step`` on the
    same state and batch (the mean of one rank issues no collective; phase
    9's compressed world of one drives NCCL's); (c) the dry run at full width as child processes,
-   all at once (``python -m repro_torch.launch.dryrun``: ``DRYRUN_CELLS``), each ok
-   with all-reduce bytes (any collective, for a decode cell), collective
-   bytes and FLOPs above 0 and ``argument_gb`` equal to its placements'
-   local shard bytes, printing ``trace_s``, the bytes by kind and the
-   roofline terms, and recording the four kernels' launches while it
-   traced (``kernel_launches``);
+   all at once (``python -m repro_torch.launch.dryrun``: ``DRYRUN_CELLS``,
+   one cell of each class the sweep once could not trace among them), each
+   ok with all-reduce bytes (any collective, for a decode cell), collective
+   bytes and FLOPs above 0, ``argument_gb`` equal to its placements'
+   local shard bytes and a peak at or above it (or, for a scaled loop, its
+   estimate), printing ``trace_s``, the loop routes, the bytes by kind,
+   the memory and the roofline terms, and recording the four kernels'
+   launches while it traced (``kernel_launches``); (d) the memory counter
+   against the card: phase 12 (a)'s granite-3-2b step traced on the meta
+   device in a world of one (plain tensors, ``launch/dryrun.py::
+   trace_single_device``), its ``peak_gb`` within ``DRYRUN_PEAK_RTOL`` of
+   the bytes phase 12 (a) measured for the model, m, v and the steps;
 14. report: the card's name and power limit, one JSON line of kernel
    numbers (each kernel at each precision, and the identity-blocked
    interaction kernels; the fp32 entries also carry the data-parallel
@@ -261,7 +268,7 @@ from repro_torch.configs import ARCH_IDS as LM_ARCH_IDS  # noqa: E402
 from repro_torch.configs import get_config as get_lm_config  # noqa: E402
 from repro_torch.configs import get_reduced as get_lm_reduced  # noqa: E402
 from repro_torch.data.sequence_pack import pack_documents  # noqa: E402
-from repro_torch.launch import lm_pretrain  # noqa: E402
+from repro_torch.launch import dryrun, lm_pretrain  # noqa: E402
 from repro_torch.launch import serve as lm_serve_cli  # noqa: E402
 from repro_torch.launch.lm_train_step import (  # noqa: E402
     init_opt_state, lm_value_and_grad, make_lm_train_step, make_lm_train_step_ddp,
@@ -528,9 +535,10 @@ def _kernel_calls(dev, rng, blk, N, layer):
     atoms and the slots of the edge blocking ``blk``, on fresh random
     inputs, at every precision, keyed by (kernel, precision): each with its
     plain version at that precision, the bytes and operations its inputs
-    need (the same at every precision: the operands stay fp32), at fp32 the
-    symmetric contraction's library baseline, and at bf16 and fp8 the fp32
-    call on the same inputs."""
+    need (the same at every precision: the operands stay fp32), the
+    symmetric contraction's library baseline (at bf16 and fp8 on the
+    operands rounded as those builds round them), and at bf16 and fp8 the
+    fp32 call on the same inputs."""
     T, bn, k = blk.n_atom_tiles, blk.block_n, CONFIG.channels
     E_p = blk.perm.shape[0]
     n_valid = int(blk.valid.sum())
@@ -584,8 +592,14 @@ def _kernel_calls(dev, rng, blk, N, layer):
     fp32 = at("fp32")
     calls = {(name, "fp32"): c for name, c in fp32.items()}
     for p in PRECISIONS[1:]:
+        # the reduced builds compute in fp32 on rounded operands: symcon_ref
+        # on the same rounded operands computes their function
+        lib = dict(zip(("symcon_fwd", "symcon_bwd"), _symcon_library(
+            *(round_to(t, p) for t in (A_t, W_t, G_t)), spec)))
         for name, c in at(p).items():
-            c.pop("library", None)  # symcon_ref computes the fp32 function
+            c.pop("library", None)
+            if name in lib:
+                c["library"] = lib[name]
             calls[(name, p)] = dict(c, fp32=fp32[name]["run"])
     return calls
 
@@ -2726,9 +2740,19 @@ LM_DDP_R = 2
 LM_DDP_STEPS = 3
 LM_DDP_DEADLINE_S = 900
 LM_DDP_LOSS_RTOL = 1e-5
-DRYRUN_CELLS = [("granite_3_2b", "train_4k", "single"), ("granite_3_2b", "train_4k", "multi"),
-                ("mace_cfm", "train_bins", "single")]
+# (arch, shape, mesh, --opt): granite on both meshes and mace, then one cell of
+# each class that once did not trace: heads sharded, the Mamba decode, experts
+# fewer than 'model' ranks, a state split over pod alone, the MoE group loop
+DRYRUN_CELLS = [("granite_3_2b", "train_4k", "single", False),
+                ("granite_3_2b", "train_4k", "multi", False),
+                ("mace_cfm", "train_bins", "single", False),
+                ("musicgen_large", "decode_32k", "single", False),
+                ("jamba_v0_1_52b", "long_500k", "single", False),
+                ("mixtral_8x22b", "train_4k", "multi", True),
+                ("xlstm_125m", "long_500k", "multi", False),
+                ("qwen3_moe_235b_a22b", "prefill_32k", "single", False)]
 DRYRUN_TIMEOUT_S = 300
+DRYRUN_PEAK_RTOL = 0.10     # the traced peak against the card's, phase 12 (a)
 
 
 def _lm_ddp_batches(cfg, dev):
@@ -2964,13 +2988,13 @@ def dryrun_cells(card):
     recs = {}
     with tempfile.TemporaryDirectory() as root:
         procs = {}
-        for arch, shape, mesh in DRYRUN_CELLS:
-            path = Path(root) / f"{arch}-{shape}-{mesh}.json"
-            procs[(arch, shape, mesh)] = (path, subprocess.Popen(
+        for arch, shape, mesh, opt in DRYRUN_CELLS:
+            path = Path(root) / f"{arch}-{shape}-{mesh}{'-opt' if opt else ''}.json"
+            procs[(arch, shape, mesh, opt)] = (path, subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
-                 shape, "--mesh", mesh, "--results", str(path)], env=env,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        for (arch, shape, mesh), (path, proc) in procs.items():
+                 shape, "--mesh", mesh, "--results", str(path)] + (["--opt"] if opt else []),
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for (arch, shape, mesh, opt), (path, proc) in procs.items():
             try:
                 _, err = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT_S - (
                     time.perf_counter() - t0)))
@@ -2978,39 +3002,72 @@ def dryrun_cells(card):
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-            rec = json.loads(path.read_text()).get(f"{arch}|{shape}|{mesh}") \
-                if path.exists() else None
+            key = f"{arch}|{shape}|{mesh}" + ("|opt" if opt else "")
+            rec = json.loads(path.read_text()).get(key) if path.exists() else None
             if rec is None:
-                raise AssertionError(f"dryrun {arch} {shape} {mesh} recorded nothing: {err[-2000:]}")
+                raise AssertionError(f"dryrun {key} recorded nothing: {err[-2000:]}")
             coll = rec.get("collectives_per_device", {})
             mem = rec.get("memory_per_device", {})
-            print(f"dryrun {arch} {shape} {mesh}: ok={rec['ok']} trace_s={rec.get('trace_s')} "
-                  f"wall_s={rec.get('wall_s')} argument_gb={mem.get('argument_gb')} (placements "
-                  f"{mem.get('argument_gb_from_placements')}) flops_per_device="
-                  f"{rec.get('cost_analysis', {}).get('flops')} collectives_per_device="
-                  f"{json.dumps(coll)} counts={json.dumps(rec.get('collective_counts'))} roofline="
+            peak = mem.get("peak_gb")
+            if peak is None:
+                peak = mem.get("peak_gb_estimate")
+            print(f"dryrun {key}: ok={rec['ok']} trace_s={rec.get('trace_s')} "
+                  f"wall_s={rec.get('wall_s')} loop_trace={rec.get('loop_trace')} "
+                  f"loops={json.dumps(rec.get('loops'))} argument_gb={mem.get('argument_gb')} "
+                  f"(placements {mem.get('argument_gb_from_placements')}) "
+                  f"temp_gb={mem.get('temp_gb')} peak_gb={mem.get('peak_gb')} "
+                  f"peak_gb_estimate={mem.get('peak_gb_estimate')} "
+                  f"output_gb={mem.get('output_gb')} alias_gb={mem.get('alias_gb')} "
+                  f"flops_per_device={rec.get('cost_analysis', {}).get('flops')} "
+                  f"collectives_per_device={json.dumps(coll)} "
+                  f"counts={json.dumps(rec.get('collective_counts'))} roofline="
                   f"{json.dumps({k: v for k, v in rec.get('roofline', {}).items() if k != 'recommendation'})}"
                   f"; card {card}", flush=True)
-            needed = coll.get("total", 0) if shape.startswith("decode") else coll.get("all-reduce", 0)
+            needed = coll.get("total", 0) if shape.startswith(("decode", "long")) \
+                else coll.get("all-reduce", 0)
             if (proc.returncode or not rec["ok"] or needed <= 0 or coll.get("total", 0) <= 0
                     or rec["cost_analysis"]["flops"] <= 0
-                    or mem["argument_gb"] != mem["argument_gb_from_placements"]):
-                raise AssertionError(f"dryrun {arch} {shape} {mesh}: {rec.get('error')} {err[-2000:]}")
-            recs[(arch, shape, mesh)] = rec
+                    or mem["argument_gb"] != mem["argument_gb_from_placements"]
+                    or not (peak is not None and peak >= mem["argument_gb"])):
+                raise AssertionError(f"dryrun {key}: {rec.get('error')} {err[-2000:]}")
+            recs[key] = rec
     print(f"dryrun cells, at once: {time.perf_counter() - t0:.1f}s", flush=True)
     return recs
 
 
-def lm_multi_device_phase(card):
-    """Phase 13: (a) and (b) the DDP step, (c) the dry run.  Launches none
-    of the four CUDA kernels: every one of its processes (the DDP ranks,
-    the dry-run cells and this one) reports its counts, summed here."""
+def traced_peak_against_card(card, measured_gb, cfg=None):
+    """Phase 13 (d): phase 12 (a)'s step traced on the meta device in a
+    world of one, its peak against the card's (``measured_gb``: the model,
+    m, v and the steps)."""
+    cfg = cfg or get_lm_config(LM_TRAIN_ARCH)
+    rec = dryrun.trace_single_device(
+        cfg, {"kind": "train", "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ}, lr=LM_LR)
+    mem = rec["memory_per_device"]
+    rel = (mem["peak_gb"] - measured_gb) / measured_gb
+    print(f"dryrun memory check {cfg.name} train {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: traced "
+          f"peak_gb={mem['peak_gb']:.3f} (argument_gb={mem['argument_gb']:.3f} "
+          f"temp_gb={mem['temp_gb']:.3f}) against the card's {measured_gb:.3f} GB: "
+          f"{rel:+.2%} (tol {DRYRUN_PEAK_RTOL:.0%}); trace_s={rec['trace_s']:.1f}; card {card}",
+          flush=True)
+    if abs(rel) > DRYRUN_PEAK_RTOL:
+        raise AssertionError(f"the traced peak {mem['peak_gb']:.3f} GB is {rel:+.2%} from the "
+                             f"card's {measured_gb:.3f} GB")
+    return dict(traced_gb=mem["peak_gb"], measured_gb=measured_gb, rel=rel)
+
+
+def lm_multi_device_phase(card, lm_train):
+    """Phase 13: (a) and (b) the DDP step, (c) the dry run, (d) its memory
+    counter against phase 12 (a)'s measured peak (``lm_train``).  Launches
+    none of the four CUDA kernels: every one of its processes (the DDP
+    ranks, the dry-run cells and this one) reports its counts, summed
+    here."""
     t0 = time.perf_counter()
     _free_device_memory()
     _reset_launches()
     ranks, rank_launches = lm_ddp(card)
     t1 = time.perf_counter()
     recs = dryrun_cells(card)
+    check = traced_peak_against_card(card, lm_train["peak_gb"] - lm_train["held_gb"])
     counts = [_launches()] + rank_launches + [rec["kernel_launches"] for rec in recs.values()]
     if any(set(c) != set(KERNELS) for c in counts):
         raise AssertionError(f"a process of phase 13 did not report the four kernels: {counts}")
@@ -3173,8 +3230,8 @@ def main() -> int:
     print(f"autotune phase: {time.perf_counter() - t0:.1f}s, of which tuning "
           f"{tune_s:.1f}s", flush=True)
     elastic_launches = elastic_phase(card)
-    lm_phase(card)
-    lm_multi_device_phase(card)
+    lm = lm_phase(card)
+    lm_multi_device_phase(card, lm["train"])
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s")
     print(card)

@@ -9,18 +9,33 @@ compiler to ask, so it traces one step instead: a fake process group of
 collectives move nothing), the cell's parameters, optimizer state and
 batch (or decode state) as DTensors on the meta device, placed by
 ``launch/sharding.py``, and one step under ``implicit_replication``,
-``count_collectives`` and ``count_flops`` (``roofline/collectives.py``).
-Nothing is allocated and nothing is launched: the devices it measures do
-not exist, so this is not a CPU fallback of any entry point.  What meta
-tracing cannot see is recorded as ``null`` (the JAX ``temp_gb`` and
-``peak_gb``: there is no buffer assignment to read).
+``count_memory``, ``count_collectives`` and ``count_flops``
+(``roofline/collectives.py``).  Nothing is allocated and nothing is
+launched: the devices it measures do not exist, so this is not a CPU
+fallback of any entry point.
+
+Memory is one device's live bytes during the step (``count_memory``):
+``peak_gb`` the most, the arguments included; ``temp_gb`` the peak less
+the arguments; ``output_gb`` the storages of what the step returns and
+``alias_gb`` those of them that are arguments' (parameters updated in
+place), the JAX record's keys.  The JAX train cells donate parameters, m
+and v; the port updates parameters in place and replaces each m and v
+entry, so the step holds what its caller does (the arguments, from the
+start) and no more.
+
+Loops (``models/loops.py``) run on local shards where they exchange nothing
+and, on meta, a long loop traces three iterations and scales the rest:
+the record's ``loop_trace`` says which (``"full"``, ``"local"`` or
+``"scaled"``, the last any loop took; ``loops`` by loop).
 
 The production meshes are 2-D and 3-D; DTensor's sharding propagation on a
 3-D mesh took over 120 s for one attention einsum (torch 2.13), so a
 3-D ``("pod", "data", "model")`` cell is traced on the 2-D ``(pod·data,
-model)`` mesh over the same ranks in the same order.  Every rule here
-shards pod and data together (``dp_axes``), so each leaf's blocks and
-groups are the same; a leaf that splits over pod or data alone is refused.
+model)`` mesh over the same ranks in the same order wherever every leaf
+shards pod and data together (``dp_axes``): each leaf's blocks and groups
+are then the same.  A cell with a leaf split over pod or data alone (a
+batch-1 decode state whose heads split over pod only) is traced on the 3-D
+mesh itself.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
@@ -52,6 +67,7 @@ from typing import Any, Dict
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch.lm_train_step import (
@@ -60,7 +76,8 @@ from repro_torch.launch.lm_train_step import (
     opt_state_specs,
     rank_rows,
 )
-from repro_torch.launch.mesh import PRODUCTION_MESHES, make_production_mesh, make_test_mesh
+from repro_torch.launch.mesh import (PRODUCTION_MESHES, dp_axes, make_production_mesh,
+                                     make_test_mesh)
 from repro_torch.launch.shapes import (
     LM_SHAPES,
     MACE_SHAPES,
@@ -82,17 +99,22 @@ from repro_torch.launch.sharding import (
     to_placements,
     tp_enabled,
 )
+from repro_torch.models import loops, moe
 from repro_torch.models import model as lm_model
-from repro_torch.models import moe
 from repro_torch.roofline.analysis import RECOMMENDATION, roofline_terms
 from repro_torch.roofline.analytic import lm_cell_cost, mace_cell_cost
-from repro_torch.roofline.collectives import count_collectives, count_flops
+from repro_torch.roofline.collectives import count_collectives, count_flops, count_memory
 
 RESULTS_PATH = os.path.join(
     os.path.dirname(__file__), "..", "..", "..", "experiments", "dryrun_results_torch.json"
 )
-MEMORY_NOTE = ("argument_gb: the local shards of the parameters, m, v and the batch or "
-               "state; temp_gb and peak_gb not measured (meta tracing assigns no buffers)")
+MEMORY_NOTE = ("one device's live storages during the traced step (local shards and plain "
+               "tensors, from each op's outputs until they die, the arguments included): "
+               "argument_gb the parameters, m, v and the batch or state; peak_gb the most "
+               "live; temp_gb = peak_gb - argument_gb; output_gb what the step returns, "
+               "alias_gb the part of it that is the arguments' storages. Not counted: the "
+               "allocator's rounding and fragmentation, library workspaces, and collective "
+               "buffers outside the tensors DTensor returns")
 FLOPS_NOTE = ("one device's, counted per dispatched op by FlopCounterMode's formulas: a "
               "DTensor op at global shapes over the mesh dims its output is split over "
               "(replicated work counts whole), a plain-tensor op (one rank's) as it is")
@@ -101,9 +123,10 @@ FLOPS_NOTE = ("one device's, counted per dispatched op by FlopCounterMode's form
 @dataclasses.dataclass
 class Cell:
     """One traced cell: ``fn(*args)`` runs the step; ``arguments`` are the
-    tensors a device holds (for ``argument_gb``) and ``declared`` the
-    ``(global shape, dtype, placements)`` of each on ``mesh`` (for the same
-    bytes from the rules); ``tmesh`` is the mesh it is traced on."""
+    tensors a device holds (for ``argument_gb``, and live from the start
+    of the step for ``peak_gb``) and ``declared`` the ``(global shape,
+    dtype, placements)`` of each on ``mesh`` (for the same bytes from the
+    rules); ``tmesh`` is the mesh it is traced on."""
     fn: Any
     args: tuple
     cost: Dict[str, float]
@@ -126,11 +149,13 @@ def fake_world(n: int) -> None:
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
 
 
-def trace_mesh(mesh):
+def trace_mesh(mesh, *placement_trees):
     """The mesh a cell is traced on: ``mesh`` itself, or for a 3-D mesh the
-    2-D ``("data", "model")`` one whose data axis is pod·data."""
+    2-D ``("data", "model")`` one whose data axis is pod·data, unless a
+    leaf of ``placement_trees`` splits over pod or data alone."""
     names = mesh.mesh_dim_names
-    if len(names) == 2:
+    if len(names) == 2 or any(pod != data for tree in placement_trees
+                              for pod, data, _ in _leaves(tree)):
         return mesh
     return make_test_mesh((mesh.size(0) * mesh.size(1), mesh.size(2)), ("data", "model"),
                           device_type=mesh.device_type)
@@ -178,7 +203,7 @@ def declared_bytes(cell: Cell) -> int:
     total = 0
     for shape, dtype, placements in cell.declared:
         n = 1
-        for s in local_shape(cell.mesh, shape, placements):
+        for s in (local_shape(cell.mesh, shape, placements) if cell.mesh else shape):
             n *= s
         total += n * torch.empty((), dtype=dtype).element_size()
     return total
@@ -198,7 +223,6 @@ def build_lm_cell(arch: str, shape_name: str, mesh, overrides: Dict[str, Any], *
     model_overrides = {k: v for k, v in overrides.items() if not k.startswith("_")}
     if model_overrides:
         cfg = dataclasses.replace(cfg, **model_overrides)
-    tmesh = trace_mesh(mesh)
     cost = lm_cell_cost(cfg, shape)
 
     params = lm_param_specs(cfg)
@@ -213,6 +237,7 @@ def build_lm_cell(arch: str, shape_name: str, mesh, overrides: Dict[str, Any], *
     if kind == "train":
         batch = lm_batch_specs(cfg, shape)
         b_pl = lm_batch_shardings(mesh, batch)
+        tmesh = trace_mesh(mesh, p_pl, b_pl)
         ddp = overrides.get("_ddp")
         if ddp:
             # manual DP: every rank holds the whole model, m and v, and its rows
@@ -240,14 +265,15 @@ def build_lm_cell(arch: str, shape_name: str, mesh, overrides: Dict[str, Any], *
         return Cell(fn, args, cost, "bf16", arguments, declared, mesh, tmesh)
 
     declared = _declare([p for _, p in params.named_parameters()], [p_pl[n] for n in names])
-    distribute_params(params, tmesh, _on(tmesh, mesh, p_pl))
-    arguments = [p for _, p in params.named_parameters()]
     if kind == "prefill":
         inputs = {"tokens": torch.empty((B, S), dtype=torch.int32, device=META)}
         if cfg.n_prefix_embeds:
             inputs["prefix_embeds"] = torch.empty(
                 (B, cfg.n_prefix_embeds, cfg.d_model), dtype=torch.float32, device=META)
         i_pl = lm_batch_shardings(mesh, inputs)
+        tmesh = trace_mesh(mesh, p_pl, i_pl)
+        distribute_params(params, tmesh, _on(tmesh, mesh, p_pl))
+        arguments = [p for _, p in params.named_parameters()]
         declared += _declare(inputs, i_pl)
         inputs = distribute_params(inputs, tmesh, _on(tmesh, mesh, i_pl))
         arguments += _leaves(inputs)
@@ -262,6 +288,9 @@ def build_lm_cell(arch: str, shape_name: str, mesh, overrides: Dict[str, Any], *
     s_pl = lm_state_shardings(mesh, state, B)
     tokens = {"tokens": torch.empty((B, 1), dtype=torch.int32, device=META)}
     t_pl = lm_batch_shardings(mesh, tokens)
+    tmesh = trace_mesh(mesh, p_pl, s_pl, t_pl)
+    distribute_params(params, tmesh, _on(tmesh, mesh, p_pl))
+    arguments = [p for _, p in params.named_parameters()]
     declared += _declare(state, s_pl) + _declare(tokens, t_pl)
     state = distribute_params(state, tmesh, _on(tmesh, mesh, s_pl))
     tokens = distribute_params(tokens, tmesh, _on(tmesh, mesh, t_pl))
@@ -333,6 +362,26 @@ def build_mace_cell(mesh, shape_name: str = "train_bins", *, mcfg=None, spec=Non
     return Cell(step, (params, m, v, bin_, 0), cost, "fp32", arguments, declared, dp_mesh)
 
 
+def trace_single_device(cfg, shape: Dict[str, Any], lr: float = 3e-4) -> Dict[str, Any]:
+    """One device's training step of ``cfg`` on a packed batch of
+    ``shape`` (tokens, labels, positions and segments), every tensor plain
+    on the meta device: ``trace_cell``'s record of the step the card runs
+    (``make_lm_train_step``), to hold its traced peak against a measured
+    one."""
+    params = lm_param_specs(cfg)
+    m, v = opt_state_specs(params)
+    B, S = shape["batch"], shape["seq"]
+    batch = {k: torch.empty((B, S), dtype=torch.int32, device=META)
+             for k in ("tokens", "labels", "positions", "segments")}
+    arguments = ([p for _, p in params.named_parameters()] + list(m.values())
+                 + list(v.values()) + list(batch.values()))
+    declared = [(tuple(t.shape), t.dtype, ()) for t in arguments]
+    cell = Cell(make_lm_train_step(cfg, lr=lr), (params, m, v, batch, 0),
+                lm_cell_cost(cfg, shape), "bf16", arguments, declared, None)
+    del params, m, v, batch, arguments   # the cell holds them (an m or v entry is replaced)
+    return trace_cell(cell, 1)
+
+
 @contextlib.contextmanager
 def lm_constraints(tmesh, batch_size: int, overrides: Dict[str, Any]):
     """The JAX dry run's model constraints while a cell traces: the
@@ -342,7 +391,7 @@ def lm_constraints(tmesh, batch_size: int, overrides: Dict[str, Any]):
     try:
         if (batch_size > 1 and not overrides.get("_no_act_constraint")
                 and not overrides.get("_ddp")):
-            lm_model.set_activation_sharding(to_placements(tmesh, ("data", None, None)))
+            lm_model.set_activation_sharding(to_placements(tmesh, (dp_axes(tmesh), None, None)))
         if overrides.get("_ep"):
             ep = to_placements(tmesh, ("model", None, None))
             moe.set_ep_sharding(ep, ep if overrides.get("_ep_weights") else None)
@@ -352,32 +401,70 @@ def lm_constraints(tmesh, batch_size: int, overrides: Dict[str, Any]):
         moe.set_ep_sharding(None)
 
 
+def _tensors(tree):
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.parameters())
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
 def trace_cell(cell: Cell, chips: int) -> Dict[str, Any]:
     """Run the cell's step once under the counters; the record's
     ``trace_s``, ``memory_per_device``, ``cost_analysis``,
-    ``collectives_per_device``, ``collective_counts``, ``analytic``,
-    ``roofline`` and ``kernel_launches`` (each CUDA kernel's launches
-    during the step: none, on meta).  Raises when the local shards' bytes
-    differ from the placements'."""
+    ``collectives_per_device``, ``collective_counts``, ``loop_trace``,
+    ``loops``, ``analytic``, ``roofline`` and ``kernel_launches`` (each
+    CUDA kernel's launches during the step: none, on meta).  Raises when
+    the local shards' bytes differ from the placements'.  Lets go of
+    ``cell.arguments``: from the start of the step only the caller's
+    references (``cell.args``) hold them."""
     from repro_torch.launch.train import kernel_launches
 
+    arg, want = argument_bytes(cell), declared_bytes(cell)
+    if arg != want:
+        raise AssertionError(f"local shards hold {arg} bytes, the placements {want}")
     if any(isinstance(t, DTensor) for t in cell.arguments):
         from torch.distributed.tensor.experimental import implicit_replication
         ctx = implicit_replication()
     else:
         ctx = contextlib.nullcontext()
+    held = set(loops.storage_bytes(cell.arguments))
+    mem = count_memory(cell.arguments)
+    cell.arguments = None
     before = kernel_launches()
+    loops.reset_routes()
     t0 = time.perf_counter()
-    with ctx, count_collectives() as coll, count_flops() as fl:
-        cell.fn(*cell.args)
+    # a checkpointed region's recompute runs whole: it cannot stop early
+    # inside a scaled loop's last iteration, so neither route stops early
+    with ctx, set_checkpoint_early_stop(False), mem, count_collectives() as coll, \
+            count_flops() as fl:
+        out = cell.fn(*cell.args)
     rec: Dict[str, Any] = {"trace_s": time.perf_counter() - t0}
     rec["kernel_launches"] = {k: n - before[k] for k, n in kernel_launches().items()}
-    arg, want = argument_bytes(cell), declared_bytes(cell)
-    if arg != want:
-        raise AssertionError(f"local shards hold {arg} bytes, the placements {want}")
+    routes = loops.routes()
+    rec["loops"] = routes
+    rec["loop_trace"] = max(routes.values(), key=("full", "local", "scaled").index,
+                            default="full")
+    outs = loops.storage_bytes(_tensors(out))
+    del out
+    scaled = [k for k, r in routes.items() if r == "scaled"]
+    peak = None if scaled else mem.peak / 1e9
     rec["memory_per_device"] = {
         "argument_gb": arg / 1e9, "argument_gb_from_placements": want / 1e9,
-        "temp_gb": None, "peak_gb": None, "note": MEMORY_NOTE}
+        "output_gb": sum(outs.values()) / 1e9,
+        "alias_gb": sum(b for k, b in outs.items() if k in held) / 1e9,
+        "temp_gb": None if peak is None else peak - arg / 1e9, "peak_gb": peak,
+        "memory_basis": ("traced" if not scaled else
+                         f"scaled loops ({', '.join(scaled)}): their skipped iterations are "
+                         "not traced, so no peak is given; peak_gb_estimate stands in the "
+                         "bytes iteration 1 kept and the most iterations 1 and n - 1 rose "
+                         "above their start for each skipped one (models/loops.py), and "
+                         "holds iteration n - 1's input gradients together"),
+        "note": MEMORY_NOTE}
+    if scaled:
+        rec["memory_per_device"]["peak_gb_estimate"] = mem.peak / 1e9
     rec["cost_analysis"] = {"flops": fl.flops, "note": FLOPS_NOTE}
     rec["collectives_per_device"] = coll.result()
     rec["collective_counts"] = dict(coll.counts)
@@ -469,11 +556,70 @@ def _report(key: str, rec: Dict[str, Any]) -> None:
         f"  {key} -> {status} wall={rec.get('wall_s', 0):.1f}s "
         f"trace={rec.get('trace_s', 0):.1f}s "
         f"arg={rec.get('memory_per_device', {}).get('argument_gb', 0):.3f}GB "
+        f"peak={rec.get('memory_per_device', {}).get('peak_gb')}GB "
+        f"loops={rec.get('loop_trace')} "
         f"flops={rec.get('cost_analysis', {}).get('flops', 0):.4g} "
         f"coll={coll.get('total', 0) / 1e6:.1f}MB/dev "
         f"{json.dumps({k: v for k, v in coll.items() if k != 'total'})}",
         flush=True,
     )
+
+
+def _largest_kind(coll) -> str:
+    kinds = {k: v for k, v in coll.items() if k != "total"}
+    if not kinds:
+        return "none"
+    kind = max(kinds, key=kinds.get)
+    return f"{kind} {kinds[kind] / coll['total']:.0%}"
+
+
+def _peak(rec) -> str:
+    mem = rec["memory_per_device"]
+    if mem.get("peak_gb") is not None:
+        return f"{mem['peak_gb']:.2f}"
+    return f"~{mem['peak_gb_estimate']:.2f}"
+
+
+SUMMARY_COLUMNS = [
+    ("trace s", lambda r: f"{r['trace_s']:.1f}"),
+    ("loops", lambda r: r.get("loop_trace", "full")),
+    ("argument GB", lambda r: f"{r['memory_per_device']['argument_gb']:.3f}"),
+    ("peak GB", _peak),
+    ("TFLOP", lambda r: f"{r['cost_analysis']['flops'] / 1e12:.4g}"),
+    ("collective GB", lambda r: f"{r['collectives_per_device']['total'] / 1e9:.4g}"),
+    ("largest kind", lambda r: _largest_kind(r["collectives_per_device"])),
+]
+
+
+def summary(results: Dict[str, Any]) -> str:
+    """A markdown table of the results, a row per (architecture, shape,
+    overrides) with each column's single / multi values: ``trace_s``, the
+    loop route, argument and peak GB a device (``~`` a scaled cell's
+    estimate), FLOPs and collective GB a device and the largest kind's
+    share of them; the skipped and failed cells after it."""
+    rows: Dict[tuple, Dict[str, Dict[str, Any]]] = {}
+    skipped, failed = [], []
+    for key, rec in sorted(results.items()):
+        arch, shape, mesh, *opt = key.split("|")
+        name = key.replace("|", " ")
+        if rec.get("skipped"):
+            skipped.append(name)
+            continue
+        if not rec.get("ok"):
+            failed.append(f"{name}: {rec.get('error', '')[:120]}")
+        rows.setdefault((arch, shape + (" --opt" if opt else "")), {})[mesh] = rec
+    out = ["| cell (single / multi) | " + " | ".join(c for c, _ in SUMMARY_COLUMNS) + " |",
+           "| --- " * (len(SUMMARY_COLUMNS) + 1) + "|"]
+    for (arch, shape), recs in sorted(rows.items()):
+        values = [" / ".join("—" if m not in recs else fn(recs[m]) if recs[m].get("ok")
+                             else "failed" for m in ("single", "multi"))
+                  for _, fn in SUMMARY_COLUMNS]
+        out.append(f"| {arch} {shape} | " + " | ".join(values) + " |")
+    if skipped:
+        out.append(f"\nSkipped ({len(skipped)}): {', '.join(skipped)}.")
+    if failed:
+        out.append(f"\nFailed ({len(failed)}): " + "; ".join(failed) + ".")
+    return "\n".join(out)
 
 
 def _run_in_child(arch, shape, mesh_name, opt, args, root) -> Dict[str, Any]:
@@ -511,7 +657,12 @@ def main(argv=None) -> int:
                          "in this process)")
     ap.add_argument("--timeout", type=float, default=None,
                     help="seconds a cell may take with --jobs above 1 (then recorded as failed)")
+    ap.add_argument("--summary", action="store_true",
+                    help="print the results file as a markdown table and exit")
     args = ap.parse_args(argv)
+    if args.summary:
+        print(summary(load_results(args.results)))
+        return 0
 
     archs = [args.arch] if args.arch else ARCH_IDS + ["mace_cfm"]
     meshes = [args.mesh] if args.mesh else ["single", "multi"]

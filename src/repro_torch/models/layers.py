@@ -7,6 +7,14 @@ under ``torch.utils.checkpoint`` when autograd records it (its probabilities
 are recomputed in the backward instead of kept).  It is deliberately not
 ``F.scaled_dot_product_attention``: the chunking, the padding and the
 ``NEG_INF`` masking are the reference's, so the numbers are too.
+
+On DTensors split only along batch and heads (train and prefill), the
+attention core runs on each rank's local shards (``loops.run_local``):
+nothing is exchanged, as GSPMD exchanges nothing there, and DTensor's
+einsum, which cannot flatten (B, H) with H sharded (torch 2.11), is never
+asked to.  A decode step's cache is split along its slots instead: there
+the query's heads are gathered where the cache's are not split (a query is
+one token), and DTensor reduces the softmax over the slots.
 """
 from __future__ import annotations
 
@@ -17,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
+
+from . import loops
 
 Params = Dict[str, torch.Tensor]
 
@@ -127,6 +137,66 @@ def _chunk_step(acc, m, s, q_, kc, vc, kp, kvld, ksg, q_positions, q_segments, w
     return acc_new, m_new, s_new
 
 
+def _attention_core(q_, k, v, q_positions, kv_positions, kv_valid, q_segments, kv_segments,
+                    window, chunk):
+    """[B, Sq, Hkv, rep, dh] of scaled queries ``q_`` against ``k``, ``v``:
+    one pass for a single query, else the chunked running softmax."""
+    B, Sq, Hkv, rep, dh = q_.shape
+    Skv = k.shape[1]
+    if Sq == 1:
+        # decode: one pass over the whole cache
+        logits = torch.einsum("bqhrd,bchd->bqhrc", q_, k).to(torch.float32)
+        mask = _mask(kv_positions, q_positions, kv_valid, window, kv_segments, q_segments)
+        logits = logits.masked_fill(~mask[:, :, None, None, :], NEG_INF)
+        p = torch.softmax(logits, dim=-1)
+        return torch.einsum("bqhrc,bchd->bqhrd", p.to(v.dtype), v)
+
+    chunk = min(chunk, Skv)
+    n_chunks = -(-Skv // chunk)
+    pad = n_chunks * chunk - Skv
+    if kv_valid is None:
+        kv_valid = torch.ones((B, Skv), dtype=torch.bool, device=q_.device)
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = F.pad(kv_positions, (0, pad), value=-1)
+        kv_valid = F.pad(kv_valid, (0, pad), value=False)
+        if kv_segments is not None:
+            kv_segments = F.pad(kv_segments, (0, pad), value=-1)
+
+    acc = torch.zeros((B, Sq, Hkv, rep, dh), dtype=torch.float32, device=q_.device)
+    m = torch.full((B, Sq, Hkv, rep), NEG_INF, dtype=torch.float32, device=q_.device)
+    s = torch.zeros((B, Sq, Hkv, rep), dtype=torch.float32, device=q_.device)
+    # flash-attention backward: recompute each chunk's probabilities in the
+    # backward instead of keeping [B, Sq, Hq, chunk] softmax tensors per chunk
+    remat = torch.is_grad_enabled()
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        ksg = kv_segments[:, sl] if kv_segments is not None else None
+        args = (acc, m, s, q_, k[:, sl], v[:, sl], kv_positions[:, sl], kv_valid[:, sl],
+                ksg, q_positions, q_segments, window)
+        if remat:
+            acc, m, s = checkpoint(_chunk_step, *args, use_reentrant=False)
+        else:
+            acc, m, s = _chunk_step(*args)
+    return acc / torch.clamp(s[..., None], min=1e-30)
+
+
+def _heads_where_cache_is(q_, k):
+    """``q_`` with its heads gathered over every mesh dim that splits them
+    but not the cache's heads (a decode step's cache is split along its
+    slots)."""
+    placements = [Replicate() if p.is_shard(2) and not kp.is_shard(2) else p
+                  for p, kp in zip(q_.placements, k.placements)]
+    if placements == list(q_.placements):
+        return q_
+    return q_.redistribute(q_.device_mesh, placements)
+
+
+_CORE_DIMS = (("b", "q", "h", "r", "e"), ("b", "c", "h", "e"), ("b", "c", "h", "e"),
+              ("b", "q"), ("b", "c"), ("b", "c"), ("b", "q"), ("b", "c"), None, None)
+
+
 def chunked_attention(
     q: torch.Tensor,              # [B, Sq, Hq, dh]
     k: torch.Tensor,              # [B, Skv, Hkv, dh]
@@ -143,48 +213,18 @@ def chunked_attention(
     """Causal (optionally windowed / packed-segment) attention, O(Skv/chunk)
     memory.  Returns [B, Sq, Hq, dh]."""
     B, Sq, Hq, dh = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[2]
     rep = Hq // Hkv
     q_ = split_dim(q * (1.0 / math.sqrt(dh)), 2, (Hkv, rep))
-
-    if Sq == 1:
-        # decode: one pass over the whole cache
-        logits = torch.einsum("bqhrd,bchd->bqhrc", q_, k).to(torch.float32)
-        mask = _mask(kv_positions, q_positions, kv_valid, window, kv_segments, q_segments)
-        logits = logits.masked_fill(~mask[:, :, None, None, :], NEG_INF)
-        p = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bqhrc,bchd->bqhrd", p.to(v.dtype), v)
-        return merge_dims(out, 2, 2).to(q.dtype)
-
-    chunk = min(chunk, Skv)
-    n_chunks = -(-Skv // chunk)
-    pad = n_chunks * chunk - Skv
-    if kv_valid is None:
-        kv_valid = torch.ones((B, Skv), dtype=torch.bool, device=q.device)
-    if pad:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
-        kv_positions = F.pad(kv_positions, (0, pad), value=-1)
-        kv_valid = F.pad(kv_valid, (0, pad), value=False)
-        if kv_segments is not None:
-            kv_segments = F.pad(kv_segments, (0, pad), value=-1)
-
-    acc = torch.zeros((B, Sq, Hkv, rep, dh), dtype=torch.float32, device=q.device)
-    m = torch.full((B, Sq, Hkv, rep), NEG_INF, dtype=torch.float32, device=q.device)
-    s = torch.zeros((B, Sq, Hkv, rep), dtype=torch.float32, device=q.device)
-    # flash-attention backward: recompute each chunk's probabilities in the
-    # backward instead of keeping [B, Sq, Hq, chunk] softmax tensors per chunk
-    remat = torch.is_grad_enabled()
-    for c in range(n_chunks):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        ksg = kv_segments[:, sl] if kv_segments is not None else None
-        args = (acc, m, s, q_, k[:, sl], v[:, sl], kv_positions[:, sl], kv_valid[:, sl],
-                ksg, q_positions, q_segments, window)
-        if remat:
-            acc, m, s = checkpoint(_chunk_step, *args, use_reentrant=False)
-        else:
-            acc, m, s = _chunk_step(*args)
-    out = acc / torch.clamp(s[..., None], min=1e-30)
+    args = (q_, k, v, q_positions, kv_positions, kv_valid, q_segments, kv_segments, window,
+            chunk)
+    out = None
+    if isinstance(q_, DTensor):
+        out = loops.run_local("attention_chunks", lambda *a: (_attention_core(*a),), args,
+                              _CORE_DIMS, (_CORE_DIMS[0],), ("b", "h"))
+        if out is None and Sq == 1 and isinstance(k, DTensor):
+            args = (_heads_where_cache_is(q_, k),) + args[1:]
+    out = _attention_core(*args) if out is None else out[0]
     return merge_dims(out, 2, 2).to(q.dtype)
 
 

@@ -7,6 +7,15 @@ has no public torch counterpart: within a chunk the linear recurrence
 same operator ``(a1, b1) . (a2, b2) = (a1*a2, a2*b1 + b2)``, and the carry of
 the previous chunk is injected as ``gates * h0 + hs``, as in the reference.
 The SSM state is float32 throughout.
+
+On DTensors the causal conv and the chunk loop run on each rank's local
+``[B, c, d_inner, d_state]`` blocks (``loops.run_local``): both run along
+the sequence, which no rule splits, so they need no collective (DTensor's
+own pad raised an ``IndexError`` in torch 2.11).  The row-parallel ``w_bcdt`` projection leaves a pending sum over
+'model' on DTensors; it is all-reduced at once, as GSPMD reduces a
+row-parallel matmul, before B, C and dt are sliced from it (left pending,
+decode asked DTensor for an ``S(1) -> P(sum)`` redistribute it does not
+have).
 """
 from __future__ import annotations
 
@@ -15,6 +24,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor, Replicate
+
+from . import loops
 from .layers import make_dense, normal
 
 Params = Dict[str, torch.Tensor]
@@ -45,6 +57,9 @@ def _ssm_params(p: Params, cfg, xz):
     """Common projections.  xz: [B, S, di] (post-conv).  Returns dt, A, B, C."""
     ds = cfg.mamba_d_state
     bcdt = xz @ p["w_bcdt"]                               # [B, S, 2ds+R]
+    if isinstance(bcdt, DTensor) and any(q.is_partial() for q in bcdt.placements):
+        bcdt = bcdt.redistribute(bcdt.device_mesh, [Replicate() if q.is_partial() else q
+                                                     for q in bcdt.placements])
     Bm = bcdt[..., :ds]
     Cm = bcdt[..., ds:2 * ds]
     dt = F.softplus(bcdt[..., 2 * ds:] @ p["w_dt"] + p["dt_bias"])  # [B, S, di]
@@ -65,28 +80,18 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     return a, b
 
 
-def mamba_train(p: Params, cfg, x: torch.Tensor, chunk: int = 256,
-                return_state: bool = False):
-    """x: [B, S, d] -> [B, S, d].  A loop over S/chunk chunks carrying the
-    SSM state; within a chunk, a parallel scan.  Bounds the
-    [B, c, d_inner, d_state] working set."""
-    B, S, d = x.shape
-    di = cfg.mamba_expand * d
-    dc = cfg.mamba_d_conv
-
-    xg = x @ p["w_in"]                                     # [B, S, 2di]
-    xs, z = xg[..., :di], xg[..., di:]
-    # causal depthwise conv1d
+def _conv(xs, conv, conv_b):
+    """The causal depthwise conv1d along S, then SiLU."""
+    dc, S = conv.shape[0], xs.shape[1]
     xp = F.pad(xs, (0, 0, dc - 1, 0))
-    xc = sum(xp[:, i:i + S, :] * p["conv"][i][None, None, :] for i in range(dc)) + p["conv_b"]
-    xc = F.silu(xc)
+    return F.silu(sum(xp[:, i:i + S, :] * conv[i][None, None, :] for i in range(dc)) + conv_b)
 
-    dt, A, Bm, Cm = _ssm_params(p, cfg, xc)
 
-    c = min(chunk, S)
-    if S % c:
-        raise ValueError(f"sequence length {S} is not a multiple of the scan chunk {c}")
-    h = torch.zeros((B, di, cfg.mamba_d_state), dtype=torch.float32, device=x.device)
+def _chunks(dt, xc, Bm, Cm, A, c, d_state):
+    """The scan over S/c chunks carrying the SSM state from zero: (y [B, S,
+    di] in ``xc``'s dtype, the last state [B, di, ds])."""
+    B, S, di = xc.shape
+    h = torch.zeros((B, di, d_state), dtype=torch.float32, device=xc.device)
     ys = []
     for i in range(S // c):
         sl = slice(i * c, (i + 1) * c)
@@ -99,7 +104,39 @@ def mamba_train(p: Params, cfg, x: torch.Tensor, chunk: int = 256,
         y = torch.einsum("bsdn,bsn->bsd", hs, C_c.to(torch.float32))
         h = hs[:, -1]
         ys.append(y.to(xc_c.dtype))
-    y = torch.cat(ys, dim=1) + xc * p["D"]
+    return torch.cat(ys, dim=1), h
+
+
+_CHUNK_DIMS = (("b", "s", "d"), ("b", "s", "d"), ("b", "s", "n"), ("b", "s", "n"), ("d", "n"),
+               None, None)
+
+
+def mamba_train(p: Params, cfg, x: torch.Tensor, chunk: int = 256,
+                return_state: bool = False):
+    """x: [B, S, d] -> [B, S, d].  A loop over S/chunk chunks carrying the
+    SSM state; within a chunk, a parallel scan.  Bounds the
+    [B, c, d_inner, d_state] working set."""
+    B, S, d = x.shape
+    di = cfg.mamba_expand * d
+    dc = cfg.mamba_d_conv
+
+    xg = x @ p["w_in"]                                     # [B, S, 2di]
+    xs, z = xg[..., :di], xg[..., di:]
+    args = (xs, p["conv"], p["conv_b"])
+    out = loops.run_local(None, lambda *a: (_conv(*a),), args,
+                          (("b", "s", "d"), ("k", "d"), ("d",)), (("b", "s", "d"),), ("b", "d"))
+    xc = _conv(*args) if out is None else out[0]
+
+    dt, A, Bm, Cm = _ssm_params(p, cfg, xc)
+
+    c = min(chunk, S)
+    if S % c:
+        raise ValueError(f"sequence length {S} is not a multiple of the scan chunk {c}")
+    args = (dt, xc, Bm, Cm, A, c, cfg.mamba_d_state)
+    out = loops.run_local("mamba_chunks", _chunks, args, _CHUNK_DIMS,
+                          (("b", "s", "d"), ("b", "d", "n")), ("b", "d"))
+    y, h = _chunks(*args) if out is None else out
+    y = y + xc * p["D"]
     y = y * F.silu(z)
     out = y @ p["w_out"]
     if return_state:

@@ -41,6 +41,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
+from . import loops
 from .attention import _project_qkv, attention_train, init_attention
 from .layers import (apply_swiglu, chunked_attention, init_swiglu, make_dense, merge_dims,
                      normal, rms_norm)
@@ -352,14 +353,34 @@ def _embed(cfg: ArchConfig, params: LM, tokens, prefix_embeds):
     return x
 
 
+def _vocab_like(logits):
+    """``arange(V)`` as a DTensor split over the mesh dims that split the
+    logits' vocab dim."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    V, last = logits.shape[-1], logits.dim() - 1
+    return distribute_tensor(
+        torch.arange(V, device=logits.device), logits.device_mesh,
+        [Shard(0) if p.is_shard(last) else Replicate() for p in logits.placements],
+        src_data_rank=None)
+
+
 def _chunk_loss(nll_sum, n_valid, xh, lab, head):
     logits = (xh @ head).to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
     idx = torch.clamp(lab, min=0).long()
     if isinstance(logits, DTensor):
+        # logsumexp by reductions DTensor can leave pending over a split
+        # vocab (its own logsumexp gathers the whole vocab on every device)
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        logz = (m + torch.log(torch.sum(torch.exp(logits - m), dim=-1, keepdim=True)))[..., 0]
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+    if isinstance(logits, DTensor):
         # DTensor's gather over a vocab-sharded dim leaves a masked partial
-        # it cannot reduce; the JAX one-hot contraction picks the same logit
-        hot = idx[..., None] == torch.arange(logits.shape[-1], device=idx.device)
+        # it cannot reduce; the JAX one-hot contraction picks the same logit,
+        # its vocab split as the logits' (a plain arange would replicate
+        # [B, chunk, V] one-hot and product tensors on every device)
+        hot = idx[..., None] == _vocab_like(logits)
         gold = torch.sum(logits * hot.to(logits.dtype), dim=-1)
     else:
         # the JAX one-hot contraction picks the same logit exactly
@@ -391,14 +412,19 @@ def forward_train(
 
     labels = batch["labels"]
     head = params.head.to(cfg.compute_dtype)
+    if isinstance(head, DTensor):
+        # as FSDP gathers a weight before use (``_lookup``): left split over
+        # the batch's axes, DTensor gathers each chunk's rows instead
+        head = head.redistribute(head.device_mesh, [p if p.is_shard(1) else Replicate()
+                                                    for p in head.placements])
 
     # chunked cross-entropy: never materialise [B, S, V]; each chunk's
     # logits are recomputed in the backward
     n_chunks = -(-S // loss_chunk)
     pad = n_chunks * loss_chunk - S
     if pad:
-        x = F.pad(x, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad), value=-1)
+        x = loops.pad(x, (0, 0, 0, pad))
+        labels = loops.pad(labels, (0, pad), value=-1)
     nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     n_valid = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = torch.is_grad_enabled()
@@ -529,6 +555,13 @@ def decode_step(
     return logits, new_state
 
 
+def _batch_only(t, cache):
+    """``t`` replicated over every mesh dim that does not split the cache's
+    batch dim."""
+    return t.redistribute(t.device_mesh, [q if q.is_shard(0) else Replicate()
+                                          for q in cache.placements])
+
+
 def _attn_decode_ring(p, cfg, x, pos, slot, cache, window):
     """Ring-buffer KV decode: write (k, v, pos) at ``slot`` (a device
     tensor), mask by the stored absolute positions (handles full and
@@ -538,8 +571,10 @@ def _attn_decode_ring(p, cfg, x, pos, slot, cache, window):
     q, k, v = _project_qkv(p, cfg, x, positions)
     if isinstance(cache["k"], DTensor):
         # no DTensor strategy for index_copy (torch 2.11): the same write
-        # as a select over the slots
+        # as a select over the slots, the token's key and value replicated
+        # but for the batch so that the cache keeps its placements
         hit = torch.arange(cache["k"].shape[1], device=slot.device) == slot
+        k, v = (_batch_only(t, cache["k"]) for t in (k, v))
         ck = torch.where(hit[None, :, None, None], k.to(cache["k"].dtype), cache["k"])
         cv = torch.where(hit[None, :, None, None], v.to(cache["v"].dtype), cache["v"])
         cp = torch.where(hit[None, :], positions, cache["pos"])

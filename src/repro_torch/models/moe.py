@@ -13,7 +13,14 @@ order among ties.
 ``set_ep_sharding`` is the JAX module's expert-parallel constraint: where
 the dispatched tokens ``xe``, the expert outputs ``ye`` and the expert
 weights are DTensors, they are redistributed to the given placements (on
-plain tensors nothing changes).
+plain tensors nothing changes).  Where the experts do not split evenly
+over the mesh dims the placements shard them over (8 experts, 16 'model'
+ranks), ``xe`` and the weights are padded with zero experts up to the next
+multiple, as GSPMD pads: no token is routed to them, but their shards are
+held and computed.
+
+The groups run through ``loops.scan``: on the dry run's meta DTensors it
+traces three of a layer's 512 groups and scales the rest.
 """
 from __future__ import annotations
 
@@ -22,8 +29,9 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 
+from . import loops
 from .layers import make_dense, normal
 
 Params = Dict[str, torch.Tensor]
@@ -57,6 +65,37 @@ def _weight_constrain(w):
     """Pin the layer's expert weights to their 'model'-on-E placements:
     their FSDP dim is gathered once per layer, not once per token group."""
     return _redistribute(w, _MOE_WEIGHT_SHARDING)
+
+
+def _ep_pad(t):
+    """``t`` (experts first) padded with zero experts to a multiple of the
+    ranks the EP placements split them over (DTensors only)."""
+    if _EP_SHARDING is None or not isinstance(t, DTensor):
+        return t
+    n = 1
+    for size, p in zip(t.device_mesh.shape, _EP_SHARDING):
+        if p.is_shard(0):
+            n *= size
+    extra = -t.shape[0] % n
+    if not extra:
+        return t
+    return torch.cat([t, torch.zeros((extra,) + tuple(t.shape[1:]), dtype=t.dtype,
+                                     device=t.device)], dim=0)
+
+
+def _gather_rows(table, idx):
+    """``table[idx]``.  On DTensors the table is gathered whole, as
+    DTensor's own indexing gathers it, and each rank takes its rows from it
+    locally: the backward of DTensor's indexing, an ``index_put``, found no
+    valid sharding for the gradients of the dispatch and the combine in
+    torch 2.11 (an unnormalized ``Shard(-1)``)."""
+    if isinstance(table, DTensor):
+        table = table.redistribute(table.device_mesh, [Replicate()] * table.device_mesh.ndim)
+        out = loops.run_local(None, lambda t, i: (t[i],), (table, idx), (("r", "d"), ("t", "k")),
+                              (("t", "k", "d"),), ("t",))
+        if out is not None:
+            return out[0]
+    return table[idx]
 
 
 def init_moe(gen: torch.Generator, cfg, dtype=torch.float32, device=None) -> Params:
@@ -114,17 +153,17 @@ def _moe_group(p: Params, cfg, xt: torch.Tensor, capacity_factor: float):
 
     # dispatch: gather token rows (the padding row Tg is zeros)
     xt_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    xe = _ep_constrain(xt_pad[token_for_slot])                # [E, C, d]
-    wg = _weight_constrain(p["wg"])
-    wi = _weight_constrain(p["wi"])
-    wo = _weight_constrain(p["wo"])
+    xe = _ep_constrain(_ep_pad(_gather_rows(xt_pad, token_for_slot)))   # [E, C, d]
+    wg = _weight_constrain(_ep_pad(p["wg"]))
+    wi = _weight_constrain(_ep_pad(p["wi"]))
+    wo = _weight_constrain(_ep_pad(p["wo"]))
     h = F.silu(torch.einsum("ecd,edf->ecf", xe, wg)) * torch.einsum("ecd,edf->ecf", xe, wi)
     ye = _ep_constrain(torch.einsum("ecf,efd->ecd", h, wo))  # [E, C, d]
 
-    # combine: each token gathers its k slots back
-    ye_flat = ye.reshape(E * C, d)
+    # combine: each token gathers its k slots back (padded experts last)
+    ye_flat = ye.reshape(-1, d)
     gather_idx = torch.where(fits, gate_idx * C + torch.clamp(pos, max=C - 1), 0)
-    yk = ye_flat[gather_idx]                                  # [Tg, k, d]
+    yk = _gather_rows(ye_flat, gather_idx)                    # [Tg, k, d]
     y = torch.einsum("tkd,tk->td", yk, gate_vals.to(xt.dtype) * fits)
 
     # Switch-style load-balance aux
@@ -153,12 +192,20 @@ def apply_moe(
     n_chunks = S // chunk_s
     g = B * chunk_s
     xs = x.reshape(B, n_chunks, chunk_s, d).transpose(0, 1).reshape(n_chunks, g, d)
+    names = ("router", "wi", "wg", "wo")
+
+    def group(carry, xc, weights):
+        yg, a = _moe_group(dict(zip(names, weights)), cfg, xc[0], capacity_factor)
+        return carry, (yg, a)
+
+    _, (ys, auxs) = loops.scan("moe_groups", group, n_chunks, (), (xs,),
+                               tuple(p[k] for k in names))
     aux = x.new_zeros(())
-    ys = []
-    for c in range(n_chunks):
-        yg, a = _moe_group(p, cfg, xs[c], capacity_factor)
-        aux = aux + a
-        ys.append(yg)
+    if isinstance(auxs, DTensor):
+        aux = aux + auxs.sum()
+    else:
+        for a in auxs.unbind(0):      # the groups' order, as the reference sums them
+            aux = aux + a
     aux = aux / n_chunks
-    y = torch.stack(ys).reshape(n_chunks, B, chunk_s, d).transpose(0, 1).reshape(B, S, d)
+    y = ys.reshape(n_chunks, B, chunk_s, d).transpose(0, 1).reshape(B, S, d)
     return y, aux

@@ -6,6 +6,13 @@ Port of the JAX package's ``models/xlstm.py``.  The sLSTM runs one Python
 step per time step, as the JAX ``lax.scan`` does one trip per step; on the
 card that loop is host-bound by design.  Its GELU is the tanh approximation
 (``jax.nn.gelu``'s default, not ``F.gelu``'s).
+
+On DTensors split along batch (and, for the mLSTM, heads) both loops run on
+each rank's local shards (``loops.run_local``): each (batch row, head) is
+its own recurrence, so nothing is exchanged.  The sLSTM's steps go through
+``loops.scan``: on the dry run's meta tensors it traces three steps a layer
+and scales the rest (4,096 to 32,768 steps of about 30 ops, at about a
+quarter of a millisecond a meta op, do not fit its time limit).
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from . import loops
 from .layers import make_dense, merge_dims, normal, rms_norm, split_dim
 
 Params = Dict[str, torch.Tensor]
@@ -110,26 +118,38 @@ def _mlstm_chunk(carry, qc, kc, vc, lic, lfc):
     return (C_n, n_n, m_c), h.permute(0, 2, 1, 3)             # [B, c, H, dh]
 
 
-def mlstm_train(p: Params, cfg, x: torch.Tensor, chunk: int = 256,
-                return_state: bool = False):
-    """Chunked-parallel stabilised mLSTM.  x: [B, S, d]."""
-    B, S, d = x.shape
-    H = cfg.n_heads
-    dh = d // H
-    q, k, v, li, lf = _mlstm_qkvgates(p, cfg, x)
-
-    c = min(chunk, S)
-    if S % c:
-        raise ValueError(f"sequence length {S} is not a multiple of the mLSTM chunk {c}")
-    carry = (torch.zeros((B, H, dh, dh), dtype=torch.float32, device=x.device),
-             torch.zeros((B, H, dh), dtype=torch.float32, device=x.device),
-             torch.full((B, H), M_INIT, dtype=torch.float32, device=x.device))
+def _mlstm_chunks(q, k, v, li, lf, c):
+    """The S/c chunks from the zero state: (h [B, S, H, dh], C, n, m)."""
+    B, S, H, dh = q.shape
+    carry = (torch.zeros((B, H, dh, dh), dtype=torch.float32, device=q.device),
+             torch.zeros((B, H, dh), dtype=torch.float32, device=q.device),
+             torch.full((B, H), M_INIT, dtype=torch.float32, device=q.device))
     hs = []
     for i in range(S // c):
         sl = slice(i * c, (i + 1) * c)
         carry, h = _mlstm_chunk(carry, q[:, sl], k[:, sl], v[:, sl], li[:, sl], lf[:, sl])
         hs.append(h)
-    h = torch.cat(hs, dim=1).to(x.dtype)                      # [B, S, H, dh]
+    return (torch.cat(hs, dim=1),) + carry
+
+
+_MLSTM_DIMS = (("b", "s", "h", "e"),) * 3 + (("b", "s", "h"),) * 2 + (None,)
+
+
+def mlstm_train(p: Params, cfg, x: torch.Tensor, chunk: int = 256,
+                return_state: bool = False):
+    """Chunked-parallel stabilised mLSTM.  x: [B, S, d]."""
+    S = x.shape[1]
+    q, k, v, li, lf = _mlstm_qkvgates(p, cfg, x)
+
+    c = min(chunk, S)
+    if S % c:
+        raise ValueError(f"sequence length {S} is not a multiple of the mLSTM chunk {c}")
+    args = (q, k, v, li, lf, c)
+    out = loops.run_local("mlstm_chunks", _mlstm_chunks, args, _MLSTM_DIMS,
+                          (("b", "s", "h", "e"), ("b", "h", "e", "f"), ("b", "h", "e"),
+                           ("b", "h")), ("b", "h"))
+    h, *carry = _mlstm_chunks(*args) if out is None else out
+    h = h.to(x.dtype)                                         # [B, S, H, dh]
     h = rms_norm(h, p["out_norm"])
     h = merge_dims(h, 2, 2) * torch.sigmoid(x @ p["wo_gate"])
     out = h @ p["w_out"]
@@ -223,19 +243,35 @@ def _slstm_out(p: Params, h: torch.Tensor, B: int, S: int, d: int) -> torch.Tens
     return y @ p["down"]
 
 
+def _slstm_steps(xw, r, cfg):
+    """The S steps from the zero state: (h [B, S, H, dh], h, c, n, m)."""
+    S, B, _ = xw.shape
+    H = cfg.n_heads
+    dh = cfg.d_model // H
+
+    def step(state, x, weights):
+        h, state = _slstm_step({"r": weights[0]}, cfg, x[0], state)
+        return state, (h,)
+
+    z0 = torch.zeros((B, H, dh), dtype=torch.float32, device=xw.device)
+    state, (hs,) = loops.scan(
+        "slstm_steps", step, S,
+        (torch.zeros((B, H, dh), dtype=xw.dtype, device=xw.device), z0, z0,
+         torch.full((B, H, dh), M_INIT, dtype=torch.float32, device=xw.device)),
+        (xw,), (r,), dim=1)
+    return (hs,) + state
+
+
 def slstm_train(p: Params, cfg, x: torch.Tensor, return_state: bool = False):
     B, S, d = x.shape
-    H = cfg.n_heads
-    dh = d // H
     xw = (x @ p["wx"] + p["b"]).transpose(0, 1)               # [S, B, 4d]
-    z0 = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
-    state = (torch.zeros((B, H, dh), dtype=x.dtype, device=x.device), z0, z0,
-             torch.full((B, H, dh), M_INIT, dtype=torch.float32, device=x.device))
-    hs = []
-    for t in range(S):
-        h, state = _slstm_step(p, cfg, xw[t], state)
-        hs.append(h)
-    out = _slstm_out(p, torch.stack(hs, dim=1), B, S, d)      # [B, S, H, dh] in
+    args = (xw, p["r"], cfg)
+    state = ("b", "h", "e")
+    out = loops.run_local("slstm_steps", _slstm_steps, args,
+                          (("s", "b", "g"), ("g", "h", "e", "f"), None),
+                          (("b", "s", "h", "e"),) + (state,) * 4, ("b",))
+    hs, *state = _slstm_steps(*args) if out is None else out
+    out = _slstm_out(p, hs, B, S, d)                          # [B, S, H, dh] in
     if return_state:
         h_f, c_f, n_f, m_f = state
         return out, {"h": h_f, "c": c_f, "n": n_f, "m": m_f}

@@ -1,5 +1,6 @@
-"""Collective traffic, FLOPs and intermediate shapes, counted from the
-dispatcher: the counterpart of the JAX package's ``roofline/hlo.py``.
+"""Collective traffic, FLOPs, live bytes and intermediate shapes, counted
+from the dispatcher: the counterpart of the JAX package's ``roofline/hlo.py``
+and of the compiled program's ``memory_analysis()``.
 
 The JAX dry run parses the compiled HLO.  The port compiles no program, so
 it counts what a traced step dispatches, under ``TorchDispatchMode``s:
@@ -25,22 +26,51 @@ it counts what a traced step dispatches, under ``TorchDispatchMode``s:
   parameters) counts whole on every device.  An op on plain tensors, as
   in the DDP step where each process holds its own rows, is one device's.
 
-Enter :func:`count_collectives` first and :func:`count_flops` inside it:
-the inner mode sees each DTensor op whole (its global shapes); the outer
-one defers DTensor ops to DTensor and sees the collectives they become.
+* :func:`count_memory` holds the bytes of every storage a device has live:
+  each DTensor's local shard and each plain tensor as it is, from the
+  step's arguments (registered on entry) and every op's outputs until the
+  storage dies (a weak reference to it).  It records the maximum.  What a
+  device allocator adds is not counted: block rounding, fragmentation and
+  library workspaces.
+
+Enter :func:`count_memory` first, :func:`count_collectives` inside it and
+:func:`count_flops` innermost: the inner mode sees each DTensor op whole
+(its global shapes); the outer ones defer DTensor ops to DTensor and see
+the collectives and local tensors they become.
+
+Inside :func:`weighted` every FLOP, collective byte and collective count is
+multiplied by its weight: a loop whose skipped iterations one traced
+iteration stands for (``models/loops.py``) counts that iteration that many
+times, as ``hlo.py`` multiplies a ``while`` body by its trip count.
 
 * :func:`out_shapes` is the materialization guard (``jaxpr_out_shapes``):
   the set of every tensor shape a call produces.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Dict, Set, Tuple
+import weakref
+from typing import Dict, List, Optional, Set, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
+
+_WEIGHT = [1]
+
+
+@contextlib.contextmanager
+def weighted(w):
+    """Count every FLOP and collective of the body ``w`` times (nested
+    weights multiply)."""
+    _WEIGHT.append(_WEIGHT[-1] * w)
+    try:
+        yield
+    finally:
+        _WEIGHT.pop()
+
 
 KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "permute")
 
@@ -119,8 +149,9 @@ class count_collectives(TorchDispatchMode):
         if kind is not None:
             g = _group_size(func, args, kwargs)
             result = out[0] if func.namespace == "c10d" else out
-            self.bytes[kind] = self.bytes.get(kind, 0.0) + _nbytes(result) * _factor(kind, g)
-            self.counts[kind] = self.counts.get(kind, 0) + 1
+            w = _WEIGHT[-1]
+            self.bytes[kind] = self.bytes.get(kind, 0.0) + _nbytes(result) * _factor(kind, g) * w
+            self.counts[kind] = self.counts.get(kind, 0) + w
         return out
 
     def result(self) -> Dict[str, float]:
@@ -161,7 +192,105 @@ class count_flops(TorchDispatchMode):
         out = func(*args, **kwargs)
         formula = self._registry.get(func._overloadpacket)
         if formula is not None:
-            self.flops += float(formula(*args, **kwargs, out_val=out)) / _devices_sharing(out)
+            self.flops += (float(formula(*args, **kwargs, out_val=out)) * _WEIGHT[-1]
+                           / _devices_sharing(out))
+        return out
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+_ACTIVE: List["count_memory"] = []
+
+
+def active_memory() -> Optional["count_memory"]:
+    """The innermost :func:`count_memory` in use, or ``None``."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+class count_memory(TorchDispatchMode):
+    """Live bytes of one device while active: ``live`` now, ``peak`` the
+    most, from ``arguments`` (tensors or DTensors, registered on entry) on.
+
+    A storage is counted once, however many tensors view it, from the op
+    that makes it until it dies: the autograd graph's saved tensors
+    included, whoever holds them.  The global-shape ops DTensor runs under
+    a fake mode to propagate shapes are not a device's and are skipped.
+    ``recording()`` lists every change of ``live`` in order, ``note``
+    raises ``peak`` to a bound reached elsewhere, and ``release`` counts a
+    storage as freed before it dies (``models/loops.py`` stands one traced
+    iteration's bytes in for skipped ones with them)."""
+
+    def __init__(self, arguments=()):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._bytes: Dict[int, int] = {}
+        self._released: Set[int] = set()
+        self._events: List[list] = []
+        for t in arguments:
+            self.track(_local(t))
+
+    def __enter__(self):
+        _ACTIVE.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        _ACTIVE.remove(self)
+        return super().__exit__(*exc)
+
+    def _change(self, n: int) -> None:
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        for ev in self._events:
+            ev.append(n)
+
+    def track(self, t: torch.Tensor) -> None:
+        """Count ``t``'s storage from now until it dies (once)."""
+        s = t.untyped_storage()
+        key = s._cdata
+        if key in self._bytes:
+            return
+        self._bytes[key] = s.nbytes()
+        weakref.finalize(s, self._died, key)
+        self._change(self._bytes[key])
+
+    def _died(self, key: int) -> None:
+        n = self._bytes.pop(key, 0)
+        if key in self._released:
+            self._released.discard(key)
+        elif n:
+            self._change(-n)
+
+    def release(self, t: torch.Tensor) -> None:
+        """Count ``t``'s storage as freed now."""
+        key = t.untyped_storage()._cdata
+        if key in self._bytes and key not in self._released:
+            self._released.add(key)
+            self._change(-self._bytes[key])
+
+    def note(self, bound: float) -> None:
+        self.peak = max(self.peak, bound)
+
+    @contextlib.contextmanager
+    def recording(self):
+        """The changes of ``live`` while in the block, in order."""
+        ev: list = []
+        self._events.append(ev)
+        try:
+            yield ev
+        finally:
+            self._events.remove(ev)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented   # let DTensor run it, then see its local tensors
+        out = func(*args, **(kwargs or {}))
+        if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is None:
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and not isinstance(t, DTensor):
+                    self.track(t)
         return out
 
 

@@ -81,7 +81,7 @@ def test_mini_multipod_dryrun(mini_cells):
     for rec in (train, decode):
         mem = rec["memory_per_device"]
         assert mem["argument_gb"] == mem["argument_gb_from_placements"] > 0
-        assert mem["temp_gb"] is None and mem["peak_gb"] is None
+        assert mem["temp_gb"] > 0 and mem["peak_gb"] >= mem["argument_gb"]
         assert rec["roofline"]["recommendation"] == RECOMMENDATION[rec["roofline"]["dominant"]]
         assert rec["kernel_launches"] == dict.fromkeys(KERNEL_NAMES, 0)
 

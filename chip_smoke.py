@@ -1199,7 +1199,7 @@ def serve_at_precisions(params, mols, fp32_results):
         f = np.concatenate([r.forces.ravel() for r in results])
         err_e, err_f = _l2_rel(e, e32), _l2_rel(f, f32)
         same = np.array_equal(e, e32) and np.array_equal(f, f32)
-        print(f"serve {p}: {stats['served']} graphs graphs_per_s={stats['graphs_per_s']:.2f} "
+        print(f"serve {p}: {stats['served']} graphs "
               f"energies L2-rel {err_e:.3e}, forces L2-rel {err_f:.3e} against fp32 "
               f"(tol {PRECISION_TOL[p]:g}); bitwise equal to fp32={same}; "
               f"launches={launches}", flush=True)
@@ -1928,8 +1928,8 @@ def serve_auto(params, mols, fp32_results, card):
     f32 = np.concatenate([r.forces.ravel() for r in fp32_results])
     err_e = _l2_rel(np.array([r.energy for r in results]), e32)
     err_f = _l2_rel(np.concatenate([r.forces.ravel() for r in results]), f32)
-    print(f"autotune serve: decisions {decisions}, {stats['served']} graphs "
-          f"graphs_per_s={stats['graphs_per_s']:.2f}, census {stats['compile_census']}, "
+    print(f"autotune serve: decisions {decisions}, {stats['served']} graphs, "
+          f"census {stats['compile_census']}, "
           f"launches {launches}, energies / forces L2-rel {err_e:.3e} / {err_f:.3e} "
           f"against phase 3; card {card}", flush=True)
     if set(decisions) != {"interaction"}:
@@ -3200,8 +3200,7 @@ def main() -> int:
     params = init_mace(CONFIG, torch.Generator().manual_seed(SEED))
     mols = skewed_requests()
     results, stats, launches, buckets = serve(params, mols)
-    print(f"serve: {stats['served']} graphs in {stats['wall_s']:.3f}s "
-          f"graphs_per_s={stats['graphs_per_s']:.2f} "
+    print(f"serve: {stats['served']} graphs "
           f"p50_ms={stats['latency_p50_ms']:.1f} p99_ms={stats['latency_p99_ms']:.1f} "
           f"bins={stats['bucket_bins']} launches={launches}", flush=True)
     missing = [name for name, n in launches.items() if n <= 0]

@@ -62,6 +62,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.core.channelwise_tp import TPSpec, tp_fused
 from repro_torch.core.interaction import (
     InteractionSpec,
@@ -153,8 +154,9 @@ class _TPBwd(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ddY, ddh, ddR):
         refuse_third_order("tp backward")
-        return (*_tp_twin_second_order(ctx.spec, *ctx.saved_tensors, ddY, ddh, ddR),
-                None, None)
+        with tracing.span("model.tp_twin", tracing.handed_off()):
+            grads = _tp_twin_second_order(ctx.spec, *ctx.saved_tensors, ddY, ddh, ddR)
+        return (*grads, None, None)
 
 
 class _TPOp(torch.autograd.Function):
@@ -318,7 +320,8 @@ class _InteractionBwd(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ddY, ddh, ddR):
         refuse_third_order("interaction backward")
-        grads = _twin_second_order(ctx.spec, *ctx.saved_tensors, ddY, ddh, ddR)
+        with tracing.span("model.tp_twin", tracing.handed_off()):
+            grads = _twin_second_order(ctx.spec, *ctx.saved_tensors, ddY, ddh, ddR)
         return (*grads, None, None, None, None, None, None, None, None)
 
 

@@ -28,6 +28,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.core.symmetric_contraction import SymConSpec
 from repro_torch.kernels import refuse_third_order
 from repro_torch.kernels.precision import check_precision
@@ -49,7 +50,7 @@ class _SymconBwdOp(torch.autograd.Function):
     def backward(ctx, ddA, ddW):
         refuse_third_order("symcon backward")
         spec = ctx.spec
-        with torch.enable_grad():
+        with tracing.span("model.symcon_twin", tracing.handed_off()), torch.enable_grad():
             a, w, g = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
             dA, dW = torch.autograd.grad(symcon_plain(a, w, spec), (a, w), g,
                                          create_graph=True)

@@ -135,11 +135,15 @@ def main(argv=None) -> int:
     threads = [
         threading.Thread(target=client, args=(p,)) for p in per_client
     ]
+    t_clients = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     results = [f.result(timeout=300.0) for f in futures]
+    # the clients' rate: from their first submission to the last result
+    clients_s = time.perf_counter() - t_clients
+    graphs_per_s = len(results) / clients_s
     if drill:
         deadline = time.monotonic() + WAIT_REBUILD_S
         while not server.rebuild_events and time.monotonic() < deadline:
@@ -152,7 +156,7 @@ def main(argv=None) -> int:
               f"latency={r.latency_s * 1e3:.0f}ms  worker={r.worker}")
 
     s = server.stats()
-    print(f"\nthroughput: {s['graphs_per_s']:.1f} graphs/s   "
+    print(f"\nthroughput: {graphs_per_s:.1f} graphs/s over {clients_s:.2f} s   "
           f"latency p50/p99: {s['latency_p50_ms']:.0f}/"
           f"{s['latency_p99_ms']:.0f} ms")
     print(f"bucket bins: {s['bucket_bins']}")
@@ -168,7 +172,7 @@ def main(argv=None) -> int:
         "device": str(server.device), "requests": args.requests,
         "served": s["served"], "failed": s["failed"], "rebuilds": s["rebuilds"],
         "compile_census": s["compile_census"],
-        "graphs_per_s": s["graphs_per_s"], "latency_p50_ms": s["latency_p50_ms"],
+        "graphs_per_s": graphs_per_s, "latency_p50_ms": s["latency_p50_ms"],
         "latency_p99_ms": s["latency_p99_ms"]}))
     want = 1 if on_card else 0
     server.close()

@@ -44,6 +44,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.bridge import params_to, resolve_device
 from repro_torch.core.mace import MaceConfig, mace_energy_forces
 from repro_torch.data.collate import BinShape, collate_bin
@@ -214,11 +215,13 @@ class ServeEngine:
         the ``blk_*`` edge blocking when the kernel consumes it), then move
         it to the device.  Strict: serving never drops a trailing graph."""
         stats = {"block_s": 0.0}
-        col = collate_bin(
-            mols, bucket, strict=True,
-            with_blocking=self.with_blocking, timings=stats,
-        )
-        return {k: torch.from_numpy(v).to(self.device) for k, v in col.items()}, stats
+        with tracing.span("serve.collate"):
+            col = collate_bin(
+                mols, bucket, strict=True,
+                with_blocking=self.with_blocking, timings=stats,
+            )
+        with tracing.span("serve.copy_in"):
+            return {k: torch.from_numpy(v).to(self.device) for k, v in col.items()}, stats
 
     def _program(self, bucket: BinShape) -> _BucketProgram:
         if self.closed:

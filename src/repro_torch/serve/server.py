@@ -62,6 +62,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.mace import MaceConfig
 from repro_torch.data.collate import BinShape
 from repro_torch.data.molecules import Molecule
@@ -143,6 +144,9 @@ class _Request:
     future: Future
     t_submit: float
     deadline: Optional[float] = None   # perf_counter domain (t_submit + timeout_s)
+    # its serve.request and serve.queue spans, when it was submitted traced
+    span: Optional[tracing.Span] = None
+    queue_span: Optional[tracing.Span] = None
 
 
 @dataclasses.dataclass
@@ -150,6 +154,12 @@ class _PackedBin:
     requests: List[_Request]
     bucket: BinShape
     retries: int = 0
+
+
+def _traced(requests: Sequence[_Request]) -> Optional[tracing.Span]:
+    """The span of the first of ``requests`` that was submitted traced: the
+    cause that makes a wave's packing and a bin record."""
+    return next((r.span for r in requests if r.span is not None), None)
 
 
 class _Stop:
@@ -240,8 +250,6 @@ class GraphServer:
         self._n_submitted = 0
         self._n_served = 0
         self._n_failed = 0
-        self._t_first_submit: Optional[float] = None
-        self._t_last_result: Optional[float] = None
         self.rebuild_events: List[Dict[str, Any]] = []
 
         self.workers: List[_Worker] = []
@@ -375,6 +383,9 @@ class GraphServer:
             next(self._req_ids), mol, fut, now,
             deadline=None if timeout_s is None else now + timeout_s,
         )
+        req.span = tracing.start("serve.request", id=req.req_id, t0=now)
+        if req.span is not None:
+            req.queue_span = tracing.start("serve.queue", req.span, t0=now)
         try:
             self._requests.put(req, timeout=timeout)
         except queue.Full:
@@ -386,8 +397,6 @@ class GraphServer:
             self._n_submitted += 1
             if req.deadline is not None:
                 self._timed[req.req_id] = req
-            if self._t_first_submit is None:
-                self._t_first_submit = time.perf_counter()
         return fut
 
     def submit_many(
@@ -467,7 +476,8 @@ class GraphServer:
         sizes = [r.mol.n_atoms for r in wave]
         edges = [r.mol.n_edges for r in wave]
         try:
-            packed = pack_requests(sizes, edges, self.buckets)
+            with tracing.span("serve.pack", _traced(wave), requests=len(wave)):
+                packed = pack_requests(sizes, edges, self.buckets)
         except BaseException as exc:
             # a packing failure must fail the wave's futures, never kill
             # the batcher thread silently (clients would hang forever)
@@ -496,6 +506,9 @@ class GraphServer:
                 return
             with self._lock:
                 self._inflight[w.wid] = item
+            for r in item.requests:
+                if r.queue_span is not None:
+                    r.queue_span.end()
             try:
                 if w.wid in self._fault_inject:
                     self._fault_inject.discard(w.wid)
@@ -509,7 +522,14 @@ class GraphServer:
                         f"injected fault (REPRO_FAULT_PLAN "
                         f"serve_worker_fault) in worker {w.wid}"
                     )
-                self._serve_bin(w, item)
+                with tracing.span("serve.bin", _traced(item.requests),
+                                  bucket=bucket_key(item.bucket)) as sp:
+                    if sp is not None:
+                        sp.count("graphs", len(item.requests))
+                        sp.count("atoms", sum(r.mol.n_atoms for r in item.requests))
+                        sp.count("edges", sum(r.mol.n_edges for r in item.requests))
+                        sp.count("edge_slots", item.bucket.max_edges)
+                    self._serve_bin(w, item)
                 with self._lock:
                     self._inflight.pop(w.wid, None)
             except BaseException as exc:  # worker dies; bin survives
@@ -541,10 +561,17 @@ class GraphServer:
         engine = self.engine
         batch, _ = engine.collate(mols, pbin.bucket)
         key = bucket_key(pbin.bucket)
-        with self._bucket_locks[key]:
-            energy, forces = engine.forward(batch, pbin.bucket)
-            energy = energy.cpu().numpy()
-            forces = forces.cpu().numpy()
+        lock = self._bucket_locks[key]
+        with tracing.span("serve.lock"):
+            lock.acquire()
+        try:
+            with tracing.span("serve.replay"):
+                energy, forces = engine.forward(batch, pbin.bucket)
+            with tracing.span("serve.copy_out"):
+                energy = energy.cpu().numpy()
+                forces = forces.cpu().numpy()
+        finally:
+            lock.release()
         t_done = time.perf_counter()
         n_off = 0
         delivered: List[_Request] = []
@@ -565,6 +592,8 @@ class GraphServer:
             # would raise InvalidStateError and kill the worker
             try:
                 if not r.future.done():
+                    if r.span is not None:
+                        r.span.end(t_done)
                     r.future.set_result(res)
                     delivered.append(r)
             except InvalidStateError:
@@ -574,7 +603,6 @@ class GraphServer:
             w.served_graphs += len(delivered)
             w.busy_s += t_done - t0
             self._n_served += len(delivered)
-            self._t_last_result = t_done
             self._latencies.extend(
                 t_done - r.t_submit for r in delivered
             )
@@ -699,8 +727,9 @@ class GraphServer:
     # ------------------------------ telemetry ------------------------------
 
     def stats(self) -> Dict[str, Any]:
-        """Serving telemetry: throughput, latency percentiles, per-bucket
-        batching evidence, and fleet health.
+        """Serving telemetry: counts, latency percentiles since start,
+        per-bucket batching evidence, and fleet health.  A rate is the
+        caller's to take, over a window of its own clock.
 
         Serialized on the rebuild lock: a read that races an in-flight
         drain-and-rebuild would otherwise see the torn-down old engine
@@ -714,16 +743,12 @@ class GraphServer:
             lat = np.asarray(self._latencies, dtype=np.float64)
             served, failed = self._n_served, self._n_failed
             submitted = self._n_submitted
-            t0, t1 = self._t_first_submit, self._t_last_result
             bucket_bins = dict(self._bucket_bins)
             bucket_graphs = dict(self._bucket_graphs)
-        wall = (t1 - t0) if (t0 is not None and t1 is not None) else 0.0
         return {
             "submitted": submitted,
             "served": served,
             "failed": failed,
-            "wall_s": wall,
-            "graphs_per_s": served / wall if wall > 0 else 0.0,
             "latency_p50_ms": float(np.percentile(lat, 50) * 1e3) if lat.size else 0.0,
             "latency_p99_ms": float(np.percentile(lat, 99) * 1e3) if lat.size else 0.0,
             "latency_mean_ms": float(lat.mean() * 1e3) if lat.size else 0.0,

@@ -49,11 +49,15 @@ applies one optimizer update.  Engines are context managers.
 
 Several rank processes can share one card: their group's backend is then
 gloo, and ``compression.all_reduce_`` stages the flat CUDA buffer through
-host memory (one copy each way).  Each rank's step time is read after
-``torch.cuda.synchronize`` around its own forward and backward, so
-:class:`RankTelemetry` holds measured per-rank times; the distributed
-engines ``all_gather`` each rank's time and load so that every process
-holds the ``[R]`` rows.  An elastic rescale (``train_loop.Trainer.rescale``)
+host memory (one copy each way).  :class:`RankTelemetry` holds measured
+per-rank times of each bin's forward and backward.  The sequential engine
+times each bin with CUDA events and its real atoms come from the host
+arrays, so the step never waits on the device for them: ``settle()``
+records the step once its metrics have been read, which waits for that
+work anyway.  The distributed engines read each rank's time after
+``torch.cuda.synchronize``, since they ``all_gather`` each rank's time
+and load within the step so that every process holds the ``[R]`` rows.
+An elastic rescale (``train_loop.Trainer.rescale``)
 closes the engine and builds another: its telemetry records the event's
 seconds (``record_rescale``), and ``RankTelemetry.merged`` reads every
 generation of a run as one.
@@ -69,6 +73,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.bridge import flatten, unflatten
 from repro_torch.core.mace import MaceConfig, weighted_loss
 from repro_torch.data.collate import BinShape, collate_bin
@@ -79,6 +84,43 @@ from .compression import all_reduce_, compressed_allreduce_ef
 from .optimizer import Transform, apply_updates, tree_map
 
 Batch = Dict[str, torch.Tensor]
+
+
+class DeviceBatch(dict):
+    """One bin's arrays on the device (``to_device``), with its real atoms
+    as the host counted them from the collated ``node_mask``."""
+
+    real_atoms: float = 0.0
+
+
+class _BinTimer:
+    """The seconds of one bin's forward and backward: between two CUDA
+    events on the card, read once the device has passed the second; the
+    host clock on the CPU, where the work is done when the call returns."""
+
+    def __init__(self, device: torch.device):
+        self.events = None
+        if device.type == "cuda":
+            stream = torch.cuda.current_stream(device)
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record(stream)
+            self.stream = stream
+        else:
+            self.t0 = time.perf_counter()
+
+    def stop(self) -> None:
+        if self.events is None:
+            self.t1 = time.perf_counter()
+        else:
+            self.events[1].record(self.stream)
+
+    def seconds(self) -> float:
+        if self.events is None:
+            return self.t1 - self.t0
+        start, end = self.events
+        end.synchronize()  # passed already once the step's metrics were read
+        return start.elapsed_time(end) / 1e3
 
 
 @dataclasses.dataclass
@@ -370,21 +412,32 @@ class _Engine:
         return cols, stats
 
     def to_device(self, batches) -> List[Batch]:
-        return [{k: torch.from_numpy(v).to(self.device) for k, v in b.items()}
-                for b in batches]
+        out = []
+        for b in batches:
+            d = DeviceBatch({k: torch.from_numpy(v).to(self.device) for k, v in b.items()})
+            d.real_atoms = float(np.count_nonzero(b["node_mask"]))
+            out.append(d)
+        return out
 
     def grads(self, params, batch: Batch) -> Tuple[Dict[str, torch.Tensor], Dict]:
         """(flat gradients, metrics) of the loss on one bin; a parameter the
-        loss does not reach gets zeros."""
-        flat = {k: v.detach().requires_grad_(True) for k, v in flatten(params).items()}
-        loss, metrics = self._loss_fn(unflatten(flat), batch)
-        grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
+        loss does not reach gets zeros.  Its span is handed to the twins'
+        spans, which a CUDA backward opens on autograd's device thread."""
+        with tracing.span("train.grads") as sp, tracing.handoff(sp):
+            flat = {k: v.detach().requires_grad_(True) for k, v in flatten(params).items()}
+            loss, metrics = self._loss_fn(unflatten(flat), batch)
+            grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True)
         return ({k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(flat.items(), grads)},
                 {k: v.detach() for k, v in metrics.items()})
 
+    def settle(self) -> None:
+        """Record what the last step left pending in the telemetry (the
+        sequential engine's; the others record within the step)."""
+
     def _timed_grads(self, params, batch: Batch):
-        """``grads`` with its wall seconds, read after the device is done."""
+        """``grads`` with its wall seconds, read after the device is done:
+        the distributed engines gather the time within the step."""
         t0 = time.perf_counter()
         grads, metrics = self.grads(params, batch)
         if self.device.type == "cuda":
@@ -412,23 +465,40 @@ class SequentialEngine(_Engine):
         if self.n_nodes and self.n_ranks % self.n_nodes:
             raise ValueError(
                 f"n_ranks={self.n_ranks} not divisible by n_nodes={self.n_nodes}")
+        self._pending = None  # the last step's bin timers and loads
 
     def init_ef(self, params):
         """Fresh residuals ``[R, ...]``, or ``[n_nodes, ...]`` with
         ``n_nodes`` set (one per quantisation site)."""
         return _zeros_ef(params, self.n_nodes or self.n_ranks, self.compress)
 
-    def step(self, params, opt_state, ef_state, batches: List[Batch], step: int):
+    def step(self, params, opt_state, ef_state, batches: List[DeviceBatch], step: int):
+        """One step on ``to_device``'s batches; their bin times and real
+        atoms reach the telemetry at ``settle()`` (the trainer's, after it
+        reads the step's metrics) or, at the latest, at the next step."""
         self._check_open()
-        grads_l, metrics_l, times, loads = [], [], [], []
+        self.settle()
+        grads_l, metrics_l, timers = [], [], []
         for b in batches:
-            grads, metrics, seconds = self._timed_grads(params, b)
-            times.append(seconds)
-            loads.append(float(b["node_mask"].sum()))
+            timer = _BinTimer(self.device)
+            grads, metrics = self.grads(params, b)
+            timer.stop()
+            timers.append(timer)
             grads_l.append(grads)
             metrics_l.append(metrics)
-        self.telemetry.record(times, loads)
-        return self.finalize(params, opt_state, ef_state, grads_l, metrics_l, step)
+        self._pending = (timers, [b.real_atoms for b in batches])
+        with tracing.span("train.optimizer"):
+            return self.finalize(params, opt_state, ef_state, grads_l, metrics_l, step)
+
+    def settle(self) -> None:
+        """Record the last step's bin seconds and real atoms.  Called after
+        the step's metrics were read, it waits for nothing: that read waited
+        for the bins' work."""
+        if self._pending is None:
+            return
+        timers, loads = self._pending
+        self._pending = None
+        self.telemetry.record([t.seconds() for t in timers], loads)
 
     def finalize(self, params, opt_state, ef_state, grads_l, metrics_l, step: int):
         """The ranks' flat gradients and metrics -> one optimizer update:
@@ -532,7 +602,7 @@ class DataParallelEngine(_Engine):
             grads, ef_state = self.reduce_grads(grads, ef_state)
             metrics = flat_mean(metrics, None, self.process_count)
         updates, opt_state = self.optimizer.update(unflatten(grads), opt_state, params, step)
-        rows = self._gather([seconds, float(batch["node_mask"].sum())])
+        rows = self._gather([seconds, batch.real_atoms])
         self.telemetry.record(rows[:, 0], rows[:, 1])
         return apply_updates(params, updates), opt_state, ef_state, metrics
 

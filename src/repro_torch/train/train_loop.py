@@ -86,8 +86,10 @@ import time
 import warnings
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.bridge import resolve_device
 from repro_torch.core.mace import MaceConfig, init_mace
 from repro_torch.data.collate import BinShape
@@ -475,18 +477,11 @@ class Trainer:
                     self.watchdog.arm(self.global_step)
                 try:
                     for item in pipeline:
-                        host_batches, host_stats = item.batch
-                        batches = self.engine.to_device(host_batches)
-                        self.params, self.opt_state, self.ef_state, metrics = self.engine.step(
-                            self.params, self.opt_state, self.ef_state, batches,
-                            self.global_step)
-                        self.ema_params = self.ema.update(
-                            self.ema_params, self.params, self.global_step)
-                        self.global_step += 1
-                        self.sampler_state.cursor += 1
-                        self.engine.telemetry.record_host(
-                            item.collate_s, item.wait_s, host_stats.get("block_s", 0.0))
-                        history.append({k: float(v) for k, v in metrics.items()})
+                        t_got = time.perf_counter()
+                        with tracing.span("train.step", id=self.global_step,
+                                          t0=t_got - item.wait_s) as sp:
+                            tracing.add("train.wait", t_got - item.wait_s, t_got)
+                            self._step(item, history, sp)
                         if self.heartbeat is not None:
                             self.heartbeat.beat(self.global_step, self.sampler_state.epoch)
                         if self.watchdog is not None:
@@ -514,6 +509,31 @@ class Trainer:
                 return True
             if self.global_step not in self.rescale_schedule:
                 return False  # the epoch's stream is exhausted, nothing pending
+
+    def _step(self, item, history, sp) -> None:
+        """One step of ``run_epoch`` on a prefetched batch, from the copy to
+        the device to the read of its metrics; ``sp`` is its ``train.step``
+        span, or None when it does not record."""
+        host_batches, host_stats = item.batch
+        if sp is not None:
+            for b in host_batches:
+                mask = b["node_mask"]
+                sp.count("atoms", int(np.count_nonzero(mask)))
+                sp.count("edges", int(np.count_nonzero(b["edge_mask"])))
+                sp.count("graphs", int(b["graph_id"][mask].max()) + 1 if mask.any() else 0)
+        with tracing.span("train.h2d"):
+            batches = self.engine.to_device(host_batches)
+        self.params, self.opt_state, self.ef_state, metrics = self.engine.step(
+            self.params, self.opt_state, self.ef_state, batches, self.global_step)
+        with tracing.span("train.ema"):
+            self.ema_params = self.ema.update(self.ema_params, self.params, self.global_step)
+        self.global_step += 1
+        self.sampler_state.cursor += 1
+        self.engine.telemetry.record_host(
+            item.collate_s, item.wait_s, host_stats.get("block_s", 0.0))
+        with tracing.span("train.sync"):
+            history.append({k: float(v) for k, v in metrics.items()})
+        self.engine.settle()
 
     def train(
         self,

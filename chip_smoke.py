@@ -7,7 +7,7 @@ GPU, at every kernel impl and precision, and its LM family, and check them.
 Run from the repository root (the script finds ``src/repro_torch`` next to
 itself).  Phases, none of them caught, so any failure exits nonzero:
 
-1. build the CUDA kernels from ``src/repro_torch/csrc``: nine libraries, one
+1. build the CUDA kernels from ``src/repro_torch/csrc``: eleven libraries, one
    ``nvcc`` each, all started together (the symmetric-contraction source and
    the interaction source for each layer's tensor-product spec, each at
    fp32, bf16 and fp8, with the generated header of that spec and
@@ -15,7 +15,10 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    kernel; every kernel must have no stack frame and no spills; then hold
    each precision's operand rounding (``round_op``) against the plain
    ``round_to``, bit for bit, on a table of edge cases and 100,000 random
-   values;
+   values (the libraries include the symmetric contraction's second-order
+   kernel, ``symmetric_contraction_second.cu``, fp32, built for the paper's
+   spec and for MACE-MP-0 medium's correlation 3, held to the same ptxas
+   report; phase 14 checks it);
 2. hold each of the four kernels at each precision against its plain
    PyTorch version on the card, at the shapes the 256-atom bucket of the
    paper's model gives it (both interaction layers; receivers with a hub
@@ -37,8 +40,9 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    weights from a seed, buckets of 64 and 256 atoms, 2 workers; each
    bucket captured as one CUDA graph at warm-up) and serve 48 molecules of
    a skewed mix; the census is one graph per bucket after the warm-up and
-   after the mix, and every kernel's launch count over that run (made by
-   replays) must be above zero; then, per bucket, one replay on a real bin
+   after the mix, and each of the four kernels' launch count over that run
+   (made by replays) must be above zero, the second order's zero; then,
+   per bucket, one replay on a real bin
    against the eager ``mace_energy_forces`` on the same batch (within the
    kernel tolerance), each kernel's launches per bin through the replay
    equal to the eager call's, both timed per bin (CUDA events and wall
@@ -52,9 +56,10 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    capacity 3,072 (``edge_factor`` 48) over ``SyntheticCFMDataset(2000,
    seed=0, max_atoms=256)``, one rank, prefetch 1, random weights from the
    seed; 5 steps, each engine step timed by CUDA events with its atoms/s,
-   loss, ``e_rmse``, ``f_rmse`` and kernel launches, which must be 2/4/2/4
-   for ``symcon_fwd``/``symcon_bwd``/``tp_scatter_fwd``/``tp_gather_bwd``
-   per bin; every loss finite; the peak device memory;
+   loss, ``e_rmse``, ``f_rmse`` and kernel launches, which must be
+   2/4/2/4/2 for ``symcon_fwd``/``symcon_bwd``/``tp_scatter_fwd``/
+   ``tp_gather_bwd``/``symcon_dbl`` (the second order) per bin; every loss
+   finite; the peak device memory;
 5. the variants, each run with the launch counts set to 0 just before it
    and read just after: serve the 48 molecules again at bf16 and at fp8
    (energies and forces finite, within the reference's ``PRECISION_TOL`` of
@@ -64,7 +69,8 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    ``fused`` and ``ref`` impls, each against the blocked ``cuda`` path
    within the kernel tolerance; 3 training steps at bf16 from phase 4's
    parameters and bins (losses within 5e-2 relative of its first three,
-   not equal, 2/4/2/4 launches per bin on the bf16 libraries); 3 fp32 steps
+   not equal, 2/4/2/4/2 launches per bin on the bf16 libraries, the second
+   order's on its fp32 one); 3 fp32 steps
    with the interaction's fused backward against 3 with its kernel
    backward, at capacity 1,024 (losses within 5e-4);
 6. measure under ``torch.profiler``: serve the molecules once more,
@@ -98,7 +104,7 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    oracle's (rtol 1e-5); the deterministic run's free trajectory against
    the oracle's (parameters, optimizer state and EMA within the bound
    wherever the oracle's Adam stayed well conditioned, the rest counted);
-   every rank a bit-identical replica with 2/4/2/4 launches per bin per
+   every rank a bit-identical replica with 2/4/2/4/2 launches per bin per
    step; printed
    per rank of the timed run: step ms, atoms/s, the all-reduce's ms (CUDA events around the
    reduction, host staging and the wait for the slowest rank included), a
@@ -120,7 +126,7 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    backward those resolve to takes the same 2 steps, each in a process of
    its own under phase 9's deterministic settings: their losses equal,
    bit for bit, and each step's launches per bin those the resolved names
-   imply (2/4/2/4 when every kind resolves to ``cuda``); and a
+   imply (2/4/2/4/2 when every kind resolves to ``cuda``); and a
    ``GraphServer`` with ``interaction_impl="auto"`` serves the 48
    molecules (one graph per bucket, the decisions in ``stats()``, energies
    and forces within 2e-4 L2-relative of phase 3's); last the tiles
@@ -133,7 +139,7 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    3,072 (``edge_factor`` 48) over phase 4's dataset: (a) an
    ``ElasticTrainer`` on the sequential engine at R = 2, prefetch 1, a
    checkpoint every step, rescaled to R = 1 after step 2, 4 steps: per
-   step the CUDA-event ms, atoms/s, loss and launches (2/4/2/4 per bin),
+   step the CUDA-event ms, atoms/s, loss and launches (2/4/2/4/2 per bin),
    the rescale event and the merged telemetry of its 2 generations; no
    graph taken twice, every one from epoch 0; the checkpoints of steps 2
    and 4 record R and the lineage; (b) restart equivalence, three
@@ -153,10 +159,10 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    of 10 times (a)'s slowest warm step (at least 20 s): each exits 0 with the
    incidents crash (or hang), relaunch at world size 1, recovered,
    success, its final checkpoint step 4 at one rank by one process, and
-   the relaunched rank's launches 2/4/2/4 per step; ``detection_s``,
+   the relaunched rank's launches 2/4/2/4/2 per step; ``detection_s``,
    ``recovery_s``, ``steps_lost`` and each attempt's wall time printed;
 12. the LM family (``repro_torch.models``; no TPU kernel, so none of
-   the four CUDA kernels: their launch counts over the phase must stay 0),
+   the five CUDA kernels: their launch counts over the phase must stay 0),
    after freeing phase 11's memory: (a) full-width training of
    ``granite_3_2b`` at its published config (40 layers, d 2048, 32/8
    heads, d_ff 8192, vocab 49,155; bf16 compute, fp32 parameters and
@@ -179,7 +185,7 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    (the last padded), 64 new tokens each: tokens/s, prefill ms and decode
    ms per token by replay, the same eager on the first batch (its first 8
    greedy tokens those of the replay), the census exactly 1 and 1;
-13. the LM scaffold's multi-device half (no TPU kernel: the four CUDA
+13. the LM scaffold's multi-device half (no TPU kernel: the five CUDA
    kernels' launch counts over the phase, read in every child process
    that runs it and summed, must stay 0): (a) the manual-DP
    step ``make_lm_train_step_ddp`` on ``xlstm_125m`` at its published
@@ -207,17 +213,24 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    bytes and FLOPs above 0, ``argument_gb`` equal to its placements'
    local shard bytes and a peak at or above it (or, for a scaled loop, its
    estimate), printing ``trace_s``, the loop routes, the bytes by kind,
-   the memory and the roofline terms, and recording the four kernels'
+   the memory and the roofline terms, and recording the five kernels'
    launches while it traced (``kernel_launches``); (d) the memory counter
    against the card: phase 12 (a)'s granite-3-2b step traced on the meta
    device in a world of one (plain tensors, ``launch/dryrun.py::
    trace_single_device``), its ``peak_gb`` within ``DRYRUN_PEAK_RTOL`` of
    the bytes phase 12 (a) measured for the model, m, v and the steps;
-14. report: the card's name and power limit, one JSON line of kernel
-   numbers (each kernel at each precision, and the identity-blocked
-   interaction kernels; the fp32 entries also carry the data-parallel
-   runs' launches, the autotune phase's and the elastic phase's), and
-   last a JSON line with ``"ok": true``.
+14. the symmetric contraction's second-order kernel at 3,072 atoms, at
+   both specs, against its plain version, two launches bit-identical, one
+   launch counted per call, and timed beside its bound and the plain
+   version's time.  It runs last: run first, in phase 1, its plain
+   version's eager work left phase 6's CUDA-only profiler sessions
+   recording 14 or 17 of every 20 launches they timed;
+15. report: the card's name and power limit, one JSON line of kernel
+   numbers (each kernel at each precision, the identity-blocked
+   interaction kernels, and the second order's training counts and phase
+   14's rows; the fp32 entries also carry the data-parallel runs'
+   launches, the autotune phase's and the elastic phase's), and last a
+   JSON line with ``"ok": true``.
 
 Without a CUDA device it exits with code 2 before printing any result.
 """
@@ -305,10 +318,14 @@ N_REQUESTS = 48
 TRAIN_ATOMS = 3072          # examples/train_mace_cfm.py's capacity on real hardware
 TRAIN_GRAPHS = 2000         # examples/train_mace_cfm.py's --n-graphs default
 TRAIN_STEPS = 5
-# launches of each kernel per bin of a training step: the forward kernels
-# once; the backward kernels inside the forces' autograd.grad and again in
-# the loss's backward (the derivative of a backward is its plain twin's)
-PER_BIN = {"symcon_fwd": 2, "symcon_bwd": 4, "tp_scatter_fwd": 2, "tp_gather_bwd": 4}
+# launches of each kernel per bin of a training step, a layer each: the
+# forward kernels once; the backward kernels inside the forces' autograd.grad
+# and again in the loss's backward; the symmetric contraction's second-order
+# kernel once, as the derivative of its backward in the loss's backward (the
+# interaction's backward takes its plain twin's).  Serving launches the
+# first four and never the second order.
+PER_BIN = {"symcon_fwd": 2, "symcon_bwd": 4, "tp_scatter_fwd": 2, "tp_gather_bwd": 4,
+           "symcon_dbl": 2}
 # the card against the CPU over a short trajectory: the cross-implementation
 # tolerances of tests/test_engine.py:493 (the card's index_add_ sums in no
 # fixed order)
@@ -389,10 +406,22 @@ KERNELS = {
 }
 
 
+# the symmetric contraction's second order (a kernel the JAX package leaves
+# to XLA), checked and timed at TRAIN_ATOMS for each spec the benchmark's
+# training cells run: the paper's correlation 2 and MACE-MP-0 medium's 3
+SECOND_ORDER_SYMBOL = "symcon_dbl_kernel"
+SECOND_ORDER_SPECS = {"mace_cfm": CONFIG.symcon_spec(),
+                      "mace_mp0_medium": dataclasses.replace(CONFIG, correlation=3).symcon_spec()}
+# the kernels whose launches are counted (the keys of PER_BIN): KERNELS and
+# the second order, whose library is fp32 at every precision
+COUNTED = {**{name: spec["kernel"] for name, spec in KERNELS.items()},
+           "symcon_dbl": sck.SYMCON_DBL}
+
+
 def _ptxas_report(log: str):
     """``{kernel: "S bytes stack frame, ...; Used N registers, ..."}`` from
-    ptxas -v, by the kernel symbols of ``KERNELS``."""
-    symbols = [spec["symbol"] for spec in KERNELS.values()]
+    ptxas -v, by the kernel symbols of ``KERNELS`` and the second order's."""
+    symbols = [spec["symbol"] for spec in KERNELS.values()] + [SECOND_ORDER_SYMBOL]
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
@@ -478,6 +507,62 @@ def _symcon_work(spec, N, k):
     bwd_ops = sum(n * (nu + 1 + nu * (nu + 2)) + 3 for (_, _, nu, n, _) in groups) * N * k
     return ((4 * N * k * (d_in + P + d_out), fwd_ops),
             (4 * N * k * (2 * (d_in + P) + d_out), bwd_ops))
+
+
+def _symcon_second_work(spec, N, k):
+    """(bytes, flops) of the second order over N atoms and k channels: A,
+    W, G and the cotangents U, V read once, dA, dW, dG written once."""
+    d_in, P, d_out = spec.in_spec.dim, sck.p_total_of(spec), spec.out_spec.dim
+    return 4 * N * k * (3 * (d_in + P) + 2 * d_out), sck.second_order_ops(spec) * N * k
+
+
+def check_second_order(dev):
+    """Phase 14's second-order check at ``TRAIN_ATOMS`` atoms and the paper's
+    width, per spec of ``SECOND_ORDER_SPECS``: the kernel against
+    ``symcon_dbl_plain`` (``KERNEL_TOL``), two launches bit-identical, one
+    launch counted per call; then its CUDA-event ms per wrapper call, its
+    profiler device ms per launch (L2 flushed before each), its bound and
+    the plain version's ms.  Prints one JSON line and returns its rows."""
+    rows = []
+    for name, spec in SECOND_ORDER_SPECS.items():
+        rng = np.random.default_rng(SEED + 2)
+        N, k, P = TRAIN_ATOMS, CONFIG.channels, sck.p_total_of(spec)
+        d_in, d_out = spec.in_spec.dim, spec.out_spec.dim
+        ops = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+               for shape in ((N, d_in, k), (N, P, k), (N, d_out, k), (N, d_in, k), (N, P, k))]
+
+        def run():
+            return sck.symcon_dbl(*ops, spec)
+
+        before = sck.SYMCON_DBL.launches
+        got = run()
+        torch.cuda.synchronize()
+        if sck.SYMCON_DBL.launches != before + 1:
+            raise AssertionError(f"second order {name}: {sck.SYMCON_DBL.launches - before} "
+                                 "launches counted for one call")
+        err, scale, ok = _compare(got, sck.symcon_dbl_plain(*ops, spec))
+        if not ok:
+            raise AssertionError(f"second order {name} disagrees with its plain version: "
+                                 f"{err:.3e} of {scale:.3g}")
+        if not all(torch.equal(a, b) for a, b in zip(got, run())):
+            raise AssertionError(f"second order {name} is not deterministic")
+        n_bytes, n_ops = _symcon_second_work(spec, N, k)
+        bound, bound_by = _bound_ms(n_bytes, n_ops)
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+        device_ms, recorded = _device_ms(run, SECOND_ORDER_SYMBOL, 20, before=flush.zero_)
+        row = dict(spec=name, N=N, k=k, max_abs_err=err, scale=scale,
+                   ms=_time_ms(run, reps=20), device_ms=device_ms,
+                   device_launches_recorded=recorded, device_launches_made=20,
+                   bound_ms=bound, bound_by=bound_by, share_of_bound=bound / device_ms,
+                   plain_ms=_time_ms(lambda: sck.symcon_dbl_plain(*ops, spec), reps=2),
+                   gflop=n_ops / 1e9, mbytes=n_bytes / 1e6)
+        print(f"second order {name}: " + " ".join(
+            f"{key}={val:.4g}" if isinstance(val, float) else f"{key}={val}"
+            for key, val in row.items()), flush=True)
+        rows.append(row)
+        del ops, got, flush
+    print(json.dumps({"second_order": rows}), flush=True)
+    return rows
 
 
 def _symcon_library(A_t, W_t, G_t, spec):
@@ -828,7 +913,7 @@ def serve(params, mols, config=None):
     """Serve ``mols`` through a ``GraphServer`` of ``config`` (one CUDA
     graph per bucket, captured at warm-up: the census is 1 per bucket after
     warm-up and after the mix), with the launches of the run, every one of
-    them on ``config.precision``'s libraries."""
+    them on ``config.precision``'s libraries and none of the second order."""
     config = config or CONFIG
     cfg = ServeConfig(capacities=CAPACITIES, edge_factor=EDGE_FACTOR,
                       n_workers=2, max_wait_s=0.01)
@@ -850,6 +935,9 @@ def serve(params, mols, config=None):
         raise AssertionError(f"serving at {config.precision} launched "
                              f"{_launches(config.precision)} of its {launches} launches "
                              "on its own libraries")
+    if launches["symcon_dbl"]:
+        raise AssertionError(f"serving at {config.precision} launched the second order: "
+                             f"{launches}")
     stats = server.stats()
     _check_census(server, f"after the mix at {config.precision}")
     server.close()
@@ -936,7 +1024,8 @@ def check_graphs(params, mols, buckets):
         if not ok:
             raise AssertionError(f"the graph of {bucket_key(bucket)} disagrees with the "
                                  "eager forward")
-        if replay_launches != eager_launches or any(n <= 0 for n in eager_launches.values()):
+        if (replay_launches != eager_launches or eager_launches["symcon_dbl"]
+                or any(eager_launches[k] <= 0 for k in KERNELS)):
             raise AssertionError(f"a replay of {bucket_key(bucket)} launched "
                                  f"{replay_launches}, the eager call {eager_launches}")
         rows[bucket_key(bucket)] = row
@@ -1087,19 +1176,20 @@ def compare_with_cpu(params, mols, results, buckets):
 
 
 def _launches(precision=None):
-    """Each kernel's launches since the last reset: all of them, or those
-    of ``precision``'s libraries."""
+    """Each counted kernel's launches since the last reset: all of them, or
+    those of the libraries a run at ``precision`` launches (the second
+    order's fp32 one at every precision)."""
     if precision is None:
-        return {name: spec["kernel"].launches for name, spec in KERNELS.items()}
-    tag = cuda_lib.precision_define(precision)
-    return {name: sum(n for header, n in spec["kernel"].launches_by_header.items()
-                      if tag in header)
-            for name, spec in KERNELS.items()}
+        return {name: kernel.launches for name, kernel in COUNTED.items()}
+    return {name: sum(n for header, n in kernel.launches_by_header.items()
+                      if cuda_lib.precision_define(
+                          "fp32" if name == "symcon_dbl" else precision) in header)
+            for name, kernel in COUNTED.items()}
 
 
 def _reset_launches():
-    for spec in KERNELS.values():
-        spec["kernel"].reset()
+    for kernel in COUNTED.values():
+        kernel.reset()
 
 
 def _trainer(capacity, device, params=None, ckpt_dir=None, config=None, **overrides):
@@ -1206,7 +1296,7 @@ def serve_at_precisions(params, mols, fp32_results):
         if max(err_e, err_f) > PRECISION_TOL[p] or same:
             raise AssertionError(f"serving at {p} is not within its tolerance of fp32, "
                                  "or is fp32 bit for bit")
-        missing = [name for name, n in launches.items() if n <= 0]
+        missing = [name for name in KERNELS if launches[name] <= 0]
         if missing:
             raise AssertionError(f"serving at {p} launched no {missing}")
         out[p] = launches
@@ -1247,7 +1337,7 @@ def check_paths_and_impls(dev, params, mols, bucket):
               f"ok={ok} launches={made}", flush=True)
         if not ok:
             raise AssertionError(f"the {what} path disagrees with the blocked cuda path")
-    if any(v <= 0 for v in launches.values()):
+    if any(launches[k] <= 0 for k in KERNELS) or launches["symcon_dbl"]:
         raise AssertionError(f"the unblocked path launched {launches}")
     if any(n for impl in ("fused", "ref") for n in runs[impl][2].values()):
         raise AssertionError("the fused or ref impl launched a kernel")
@@ -1337,8 +1427,10 @@ def profile_train_step(tr, step_ms):
     for e in sorted(events, key=_device_us, reverse=True)[:12]:
         print(f"train profile top: {_device_us(e) / 1e3:9.3f} ms x{e.count:<5d} {e.key[:90]}")
     out = {}
-    for name, spec in KERNELS.items():
-        mine = [e for e in events if spec["symbol"] in e.key]
+    symbols = {**{name: spec["symbol"] for name, spec in KERNELS.items()},
+               "symcon_dbl": SECOND_ORDER_SYMBOL}
+    for name, symbol in symbols.items():
+        mine = [e for e in events if symbol in e.key]
         ms, seen = sum(map(_device_us, mine)) / 1e3, sum(e.count for e in mine)
         print(f"train profile kernel {name}: device_ms={ms:.4f} "
               f"launches_recorded={seen}/{made[name]}", flush=True)
@@ -1665,7 +1757,7 @@ def _spawn_ranks(root, name, n_procs, **cfg):
 
 def _check_replicas(name, ranks):
     """Every rank bit-identical to rank 0 (a synchronous replica), each
-    having collated only its own bin, with 2/4/2/4 launches per step."""
+    having collated only its own bin, with 2/4/2/4/2 launches per step."""
     info0, state0, _ = ranks[0]
     for r, (info, state, _) in enumerate(ranks):
         diff = [k for k in state0 if not k.startswith("ef/")
@@ -1683,7 +1775,7 @@ def _check_replicas(name, ranks):
 def _hold_against_oracle(name, ranks, det, oracle, compress, card):
     """The timed run ``ranks`` and its deterministic twin ``det`` against
     the deterministic sequential oracle at the same R.  In both runs every
-    rank is a bit-identical replica with 2/4/2/4 launches per step, and each
+    rank is a bit-identical replica with 2/4/2/4/2 launches per step, and each
     step's reduction and update equal the oracle's on the ranks' own
     gradients from the step's own state (parameters, optimizer state and
     residuals within the JAX engine bounds); rank 0's losses are within
@@ -1826,7 +1918,7 @@ def _per_bin_for(cfg):
     names imply (``PER_BIN`` when every kind runs cuda)."""
     want = dict(PER_BIN)
     if cfg.symcon_impl_name != "cuda":
-        want.update(symcon_fwd=0, symcon_bwd=0)
+        want.update(symcon_fwd=0, symcon_bwd=0, symcon_dbl=0)
     if cfg.interaction_impl_name != "cuda":
         want.update(tp_scatter_fwd=0, tp_gather_bwd=0)
     elif cfg.interaction_bwd_impl == "fused":
@@ -1937,7 +2029,7 @@ def serve_auto(params, mols, fp32_results, card):
     resolved, _ = autotune.resolve_mace_config(
         dataclasses.replace(CONFIG, interaction_impl="auto"), capacity=max(CAPACITIES),
         edge_factor=EDGE_FACTOR, platform="gpu")
-    want = [k for k, n in _per_bin_for(resolved).items() if n]
+    want = [k for k in KERNELS if _per_bin_for(resolved)[k]]
     if any(launches[k] <= 0 for k in want):
         raise AssertionError(f"the 'auto' server launched {launches}, expected {want}")
     if max(err_e, err_f) > PRECISION_TOL["fp32"]:
@@ -2706,7 +2798,7 @@ def lm_serve_full_width(card, argv=None):
 
 def lm_phase(card):
     """Phase 12: (a) full-width training, (b) every family reduced, (c)
-    full-width serving.  The LM path has no CUDA kernel of the four: their
+    full-width serving.  The LM path has no CUDA kernel of the five: their
     counts over the phase stay 0."""
     print(f"lm phase: {_free_device_memory():.2f} GB held after phase 11, "
           f"{threading.active_count()} threads alive", flush=True)
@@ -3058,7 +3150,7 @@ def traced_peak_against_card(card, measured_gb, cfg=None):
 def lm_multi_device_phase(card, lm_train):
     """Phase 13: (a) and (b) the DDP step, (c) the dry run, (d) its memory
     counter against phase 12 (a)'s measured peak (``lm_train``).  Launches
-    none of the four CUDA kernels: every one of its processes (the DDP
+    none of the five CUDA kernels: every one of its processes (the DDP
     ranks, the dry-run cells and this one) reports its counts, summed
     here."""
     t0 = time.perf_counter()
@@ -3069,9 +3161,9 @@ def lm_multi_device_phase(card, lm_train):
     recs = dryrun_cells(card)
     check = traced_peak_against_card(card, lm_train["peak_gb"] - lm_train["held_gb"])
     counts = [_launches()] + rank_launches + [rec["kernel_launches"] for rec in recs.values()]
-    if any(set(c) != set(KERNELS) for c in counts):
-        raise AssertionError(f"a process of phase 13 did not report the four kernels: {counts}")
-    launches = {k: sum(c[k] for c in counts) for k in KERNELS}
+    if any(set(c) != set(COUNTED) for c in counts):
+        raise AssertionError(f"a process of phase 13 did not report the five kernels: {counts}")
+    launches = {k: sum(c[k] for c in counts) for k in COUNTED}
     if any(launches.values()):
         raise AssertionError(f"the multi-device LM path launched MACE kernels: {counts}")
     print(f"lm multi-device phase: {time.perf_counter() - t0:.1f}s ((a)+(b) {t1 - t0:.1f}s, "
@@ -3082,22 +3174,25 @@ def lm_multi_device_phase(card, lm_train):
 
 
 def kernel_units():
-    """(label, (source, header)) of the nine kernel libraries: the
+    """(label, (source, header)) of the eleven kernel libraries: the
     symmetric contraction's spec and both layers' tensor-product specs, each
-    at every precision."""
+    at every precision, and the second order (fp32) of each spec of
+    ``SECOND_ORDER_SPECS``."""
     units = []
     for p in PRECISIONS:
         units += [(f"symcon {p}", u) for u in sck.build_units([CONFIG.symcon_spec()], [p])]
         units += [(f"tp layer {layer} {p}", u)
                   for layer in range(CONFIG.n_interactions)
                   for u in tpk.build_units([CONFIG.tp_spec_at(layer)], [p])]
+    units += [(f"symcon second {name}", sck.second_order_unit(spec))
+              for name, spec in SECOND_ORDER_SPECS.items()]
     return units
 
 
 def kernel_entries(results, training, identity, launches, train, train_profile,
                    variant_launches, bf16_training_launches, identity_launches,
                    dp_launches, serving_profile, graph_rows, autotune_launches,
-                   elastic_launches):
+                   elastic_launches, second_order):
     """The ``kernels`` JSON line: each kernel at fp32 (the serving run's
     launches, all of them through graph replays, with its launches per
     replay of each bucket's graph, the serving profile's launches recorded
@@ -3108,7 +3203,24 @@ def kernel_entries(results, training, identity, launches, train, train_profile,
     launches).  The fp32 entries also carry the autotune phase's launches
     (its "auto" training run and its "auto" server) and the elastic phase's
     (each part's run: the in-process rescale, the three restart runs, the
-    relaunched rank of each supervised drill)."""
+    relaunched rank of each supervised drill).  Last the second order
+    (``symcon_dbl``, fp32 at every precision): the same counts of the
+    training runs (its bf16 run's too), none in serving, and phase 14's
+    rows (``second_order``)."""
+
+    def trained(name):  # a kernel's launches and device time in training
+        return dict(
+            training_launches=train["launches"][name],
+            training_launches_per_step=[r["launches"][name] for r in train["rows"]],
+            training_device_ms_per_step=train_profile[name]["device_ms"],
+            training_device_launches_recorded=train_profile[name]["recorded"],
+            training_device_launches_made=train_profile[name]["made"],
+            data_parallel_launches={run: n[name] for run, n in dp_launches.items()},
+            replay_launches_per_bin={b: r["replay_launches"][name]
+                                     for b, r in graph_rows.items()},
+            autotune_launches={run: n[name] for run, n in autotune_launches.items()},
+            elastic_launches={run: n[name] for run, n in elastic_launches.items()})
+
     entries = []
     for name, spec in KERNELS.items():
         common = dict(route="cuda", source=spec["source"], replaces=spec["replaces"])
@@ -3130,19 +3242,9 @@ def kernel_entries(results, training, identity, launches, train, train_profile,
                 train_bin_bound_ms=[r["bound"] for r in rows],
                 train_bin_device_launches_recorded=[r["recorded"] for r in rows])
             if p == "fp32":
-                entry.update(
-                    training_launches=train["launches"][name],
-                    training_launches_per_step=[r["launches"][name] for r in train["rows"]],
-                    training_device_ms_per_step=train_profile[name]["device_ms"],
-                    training_device_launches_recorded=train_profile[name]["recorded"],
-                    training_device_launches_made=train_profile[name]["made"],
-                    data_parallel_launches={run: n[name] for run, n in dp_launches.items()},
-                    replay_launches_per_bin={b: r["replay_launches"][name]
-                                             for b, r in graph_rows.items()},
-                    serving_device_launches_recorded=serving_profile[name][0],
-                    serving_device_launches_made=serving_profile[name][1],
-                    autotune_launches={run: n[name] for run, n in autotune_launches.items()},
-                    elastic_launches={run: n[name] for run, n in elastic_launches.items()})
+                entry.update(trained(name),
+                             serving_device_launches_recorded=serving_profile[name][0],
+                             serving_device_launches_made=serving_profile[name][1])
             elif p == "bf16":
                 entry.update(training_launches=bf16_training_launches[name])
             entries.append(entry)
@@ -3158,6 +3260,11 @@ def kernel_entries(results, training, identity, launches, train, train_profile,
                 per_layer_device_ms=[r["device_ms"] for r in rows],
                 per_layer_share_of_bound=[r["bound"] / r["device_ms"] for r in rows],
                 device_launches_recorded=sum(r["recorded"] for r in rows)))
+    entries.append(dict(
+        name="symcon_dbl", precision="fp32", route="cuda",
+        source="src/repro_torch/csrc/symmetric_contraction_second.cu", replaces=None,
+        launches=launches["symcon_dbl"], bf16_training_launches=bf16_training_launches[
+            "symcon_dbl"], second_order=second_order, **trained("symcon_dbl")))
     return entries
 
 
@@ -3203,7 +3310,7 @@ def main() -> int:
     print(f"serve: {stats['served']} graphs "
           f"p50_ms={stats['latency_p50_ms']:.1f} p99_ms={stats['latency_p99_ms']:.1f} "
           f"bins={stats['bucket_bins']} launches={launches}", flush=True)
-    missing = [name for name, n in launches.items() if n <= 0]
+    missing = [name for name in KERNELS if launches[name] <= 0]
     if missing:
         raise AssertionError(f"the serving run launched no {missing}")
     graph_rows = check_graphs(params, mols, buckets)
@@ -3231,13 +3338,15 @@ def main() -> int:
     elastic_launches = elastic_phase(card)
     lm = lm_phase(card)
     lm_multi_device_phase(card, lm["train"])
+    second_order = check_second_order(dev)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps({"kernels": kernel_entries(
         kernel_results, training_results, identity_results, launches, train,
         train_profile, variant_launches, bf16_training_launches, identity_launches,
-        dp_launches, serving_profile, graph_rows, autotune_launches, elastic_launches)}))
+        dp_launches, serving_profile, graph_rows, autotune_launches, elastic_launches,
+        second_order)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,7 +16,8 @@ forces  F = -dE/dr  via ``torch.autograd.grad``.  Serving takes them
 detached (:func:`mace_energy_forces`); training keeps their graph
 (:func:`energy_forces_graph`, ``create_graph=True``), so the forces term of
 :func:`weighted_loss` makes every step a grad-of-grad, whose second order
-runs through the kernel ops' plain twins (``kernels/*/ops.py``).
+runs through the symmetric contraction's second-order kernel and the
+interaction's plain twins (``kernels/*/ops.py``).
 
 Batch layout (static shapes; padding masked) is the JAX package's:
 species [N], positions [N, 3], node_mask [N], senders/receivers/edge_mask

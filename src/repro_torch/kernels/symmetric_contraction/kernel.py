@@ -3,24 +3,29 @@
 The CUDA kernels are ``csrc/symmetric_contraction.cu`` (``symcon_fwd``,
 ``symcon_bwd``); they replace the Pallas TPU kernels ``_symcon_kernel`` and
 ``_symcon_bwd_kernel`` of the JAX package's
-``kernels/symmetric_contraction/kernel.py``.  Like the TPU kernels, which
-unroll the CG groups at trace time, the source is built once per (spec,
-precision) with a generated header (:func:`spec_header`) that unrolls the
-groups of :func:`_group_entries` into straight-line scalar sums over one
-(atom, channel)'s operands in registers.  Beside each kernel is its plain
-PyTorch version over the same CG groups:
+``kernels/symmetric_contraction/kernel.py``.  A third kernel,
+``csrc/symmetric_contraction_second.cu`` (``symcon_dbl``), is the backward's
+own derivative, the second order that training's force loss asks for; it
+replaces no TPU kernel (the JAX package leaves that derivative to XLA).
+Like the TPU kernels, which unroll the CG groups at trace time, each source
+is built once per (spec, precision) with a generated header
+(:func:`spec_header`) that unrolls the groups of :func:`_group_entries` into
+straight-line scalar sums over one (atom, channel)'s operands in registers.
+Beside each kernel is its plain PyTorch version over the same CG groups:
 
 * :func:`symcon_plain` — port of the JAX ``symcon_xla_raw``;
 * :func:`symcon_bwd_plain` — an explicit loop over the groups, the product
-  rule of ``_symcon_bwd_kernel``.
+  rule of ``_symcon_bwd_kernel``;
+* :func:`symcon_dbl_plain` — the same loop for the second order.
 
 Precision (``"fp32"``, ``"bf16"``, ``"fp8"``; ``kernels/precision.py``):
 the bf16 and fp8 builds round every loaded operand (A and W; G in the
 backward) and compute in fp32, as the TPU kernels' ``precision`` argument
 does; the plain versions round the same operands with ``round_to``.
 
-The wrappers :func:`symcon_fwd` and :func:`symcon_bwd` launch the kernel on
-a CUDA tensor and take the plain version only for a CPU tensor.
+The wrappers :func:`symcon_fwd`, :func:`symcon_bwd` and :func:`symcon_dbl`
+launch the kernel on a CUDA tensor and take the plain version only for a
+CPU tensor.  The second order is fp32 at every precision.
 
 Layout: A [N, d_in, k], W [N, P_total, k] (species-gathered, terms
 concatenated along the path axis), B [N, d_out, k]; k minor.
@@ -51,6 +56,9 @@ SYMCON_FWD = CudaKernel(
 )
 SYMCON_BWD = CudaKernel(
     "symmetric_contraction.cu", "symcon_bwd", [PTR] * 5 + [INT] * 2
+)
+SYMCON_DBL = CudaKernel(
+    "symmetric_contraction_second.cu", "symcon_dbl", [PTR] * 8 + [INT] * 2
 )
 # round_op of a build on n values (a check of the rounding, off the model's path)
 ROUND_VALUES = CudaKernel("symmetric_contraction.cu", "round_values", [PTR] * 2 + [INT])
@@ -100,9 +108,12 @@ def spec_header(spec: SymConSpec, precision: str = "fp32") -> str:
     the backward: per group the same ``s``, ``dw[eta] = / += g[out] * s`` and
     ``const float gwJ = g[out] * w[eta]``; then, row by row of A, ``da[m] =
     / +=`` the product-rule terms ``gwJ * (Π_{y != x} a[m_y] * val)`` of the
-    entries that hold m, in (group, entry, x) order.  A row that no group
-    reaches is set to ``0.f``, so every output register is written by
-    compile-time code."""
+    entries that hold m, in (group, entry, x) order.
+    A row that no group reaches is set to ``0.f``, so every output register
+    is written by compile-time code.  ``symcon_second(A, W, G, U, V, dA, dW,
+    dG, k)``, the second order (the VJP of the backward's map with
+    cotangents U of dA and V of dW), reads and writes one (atom, channel)'s
+    columns itself, in cases of a switch (:func:`_second_order_body`)."""
     groups, p_total = _group_entries(spec, build_symcon_tables(spec))
     if any(nu > 3 for (_, _, nu, _, _) in groups):
         raise NotImplementedError("the CUDA symcon kernels take nu <= 3")
@@ -158,8 +169,138 @@ def spec_header(spec: SymConSpec, precision: str = "fp32") -> str:
         "  float s;",
         *bwd,
         "}",
+        "__device__ __forceinline__ void symcon_second(",
+        "    const float* __restrict__ A, const float* __restrict__ W,",
+        "    const float* __restrict__ G, const float* __restrict__ U,",
+        "    const float* __restrict__ V, float* __restrict__ dA,",
+        "    float* __restrict__ dW, float* __restrict__ dG, long k) {",
+        *_second_order_body(groups, p_total)[0],
+        "}",
         "",
     ])
+
+
+# most CG entries in one case of symcon_second's switch: at correlation 3
+# a case of one whole group (up to 126 entries) spilled, and cases of 64
+# took 10% longer than cases of 96 (PERF.md, Findings)
+SECOND_ORDER_CASE_ENTRIES = 96
+
+
+def _prod(ix, pos) -> str:
+    """``Π a[ix[x]]`` over the entry positions ``pos`` (ascending), from the
+    entry's pair products ``pXY``."""
+    if len(pos) == 1:
+        return f"a{ix[pos[0]]}"
+    if len(pos) == 2:
+        return f"p{pos[0]}{pos[1]}"
+    return f"p01 * a{ix[2]}"
+
+
+def _dprod(ix, pos) -> str:
+    """``Σ_y u[ix[y]] Π_{z != y} a[ix[z]]`` over the positions ``pos``: the
+    product's derivative along ``u``."""
+    terms = []
+    for y in pos:
+        rest = tuple(z for z in pos if z != y)
+        terms.append(f"u{ix[y]} * {_prod(ix, rest)}" if rest else f"u{ix[y]}")
+    return " + ".join(terms)
+
+
+def _second_order_body(groups, p_total: int) -> Tuple[List[str], int]:
+    """The statements of ``symcon_second``, and the arithmetic operations
+    they make per (atom, channel): each ``*``, `` + `` and ``+=`` of the
+    statements that compute.  The backward maps (a, w, g) to
+    ``dw[eta] = Σ_j g[M] s_j`` and ``da[m] = Σ_j g[M] w[eta] ∂s_j/∂a[m]``
+    (``s_j = Σ val Π_x a[m_x]`` over group j's entries); its VJP with
+    cotangents (u, v) is, per group, with ``ds_j = Σ val Σ_x u[m_x]
+    Π_{y != x} a[m_y]``: ``dg[M] += w[eta] ds_j + v[eta] s_j``, ``dw[eta] +=
+    g[M] ds_j`` and, per entry and position x, ``da[m_x] += val (g[M] w[eta]
+    Σ_{y != x} u[m_y] Π_{z != x, y} a[m_z] + g[M] v[eta] Π_{y != x}
+    a[m_y])``.  Groups in table order, entries in group order, positions in
+    order; :func:`symcon_dbl_plain` sums in the same order.
+
+    The entries are cut into the cases of a switch inside a loop that is
+    not unrolled: each group's entries in balanced cases of at most
+    ``SECOND_ORDER_CASE_ENTRIES``, in order.  Each case loads the rows of A
+    and U it uses; g, da and dg stay in registers across cases, as do the
+    running sums s, ds, the group's g[M] w[eta] and g[M] v[eta], and the run
+    of groups of one weight row (its w, v and dw, stored when the run ends).
+    Straight-line code over all entries spills at correlation 3: the
+    compilers keep products of A shared by entries far apart live between
+    them, and a case that reads A only from registers lets them hoist every
+    product out of the loop."""
+    cases, n_cases, n_ops = [], 0, 0
+    for gi, (w_idx, out_idx, nu, _, ents) in enumerate(groups):
+        first_of_run = gi == 0 or groups[gi - 1][0] != w_idx
+        last_of_run = gi == len(groups) - 1 or groups[gi + 1][0] != w_idx
+        n_cuts = -(-len(ents) // SECOND_ORDER_CASE_ENTRIES)
+        cuts = [round(i * len(ents) / n_cuts) for i in range(n_cuts + 1)]
+        every = tuple(range(nu))
+        for c0, c1 in zip(cuts, cuts[1:]):
+            lines, math, used = [], [], set()
+            if c0 == 0:
+                if first_of_run:
+                    lines.append(f"wr = __ldg(W + {w_idx} * k); vr = __ldg(V + {w_idx} * k);")
+                math.append(f"gw = g[{out_idx}] * wr; gv = g[{out_idx}] * vr;")
+            for e in range(c0, c1):
+                ix, val = ents[e]
+                used.update(ix)
+                c = f32_literal(val)
+                pairs = ", ".join(f"p{x}{y} = a{ix[x]} * a{ix[y]}"
+                                  for x in every for y in every if x < y)
+                stmts = [f"const float {pairs};"] if pairs else []
+                op = "=" if e == 0 else "+="
+                stmts += [f"s {op} {_prod(ix, every)} * {c};",
+                          f"ds {op} ({_dprod(ix, every)}) * {c};"]
+                for x in every:
+                    rest = tuple(y for y in every if y != x)
+                    stmts.append(f"da[{ix[x]}] += " + (
+                        f"(gw * ({_dprod(ix, rest)}) + gv * {_prod(ix, rest)}) * {c};"
+                        if rest else f"gv * {c};"))
+                math.append("{ " + " ".join(stmts) + " }")
+            if c1 == len(ents):
+                math.append(f"dg[{out_idx}] += wr * ds + vr * s;")
+                math.append(f"dwr {'=' if first_of_run else '+='} g[{out_idx}] * ds;")
+            n_ops += sum(line.count("*") + line.count(" + ") + line.count("+=")
+                         for line in math)  # not the "+" of a literal's exponent
+            lines += math
+            if c1 == len(ents) and last_of_run:
+                lines.append(f"dW[{w_idx} * k] = dwr;")
+            rows = sorted(used)
+            cases += [f"    case {n_cases}: {{",
+                      "      const float " + ", ".join(
+                          f"a{m} = __ldg(A + {m} * k)" for m in rows) + ";",
+                      "      const float " + ", ".join(
+                          f"u{m} = __ldg(U + {m} * k)" for m in rows) + ";",
+                      *(f"      {line}" for line in lines),
+                      "    } break;"]
+            n_cases += 1
+    reached = {w_idx for (w_idx, *_rest) in groups}
+    return ([
+        "  float g[D_OUT], da[D_IN], dg[D_OUT];",
+        "  float s = 0.f, ds = 0.f, gw = 0.f, gv = 0.f, wr = 0.f, vr = 0.f, dwr = 0.f;",
+        "#pragma unroll",
+        "  for (int m = 0; m < D_OUT; ++m) { g[m] = __ldg(G + m * k); dg[m] = 0.f; }",
+        "#pragma unroll",
+        "  for (int m = 0; m < D_IN; ++m) da[m] = 0.f;",
+        *(f"  dW[{r} * k] = 0.f;" for r in range(p_total) if r not in reached),
+        "#pragma unroll 1",
+        f"  for (int j = 0; j < {n_cases}; ++j) {{",
+        "    switch (j) {",
+        *cases,
+        "    }",
+        "  }",
+        "#pragma unroll",
+        "  for (int m = 0; m < D_IN; ++m) dA[m * k] = da[m];",
+        "#pragma unroll",
+        "  for (int m = 0; m < D_OUT; ++m) dG[m * k] = dg[m];",
+    ], n_ops)
+
+
+def second_order_ops(spec: SymConSpec) -> int:
+    """Arithmetic operations of ``spec``'s second-order kernel per (atom,
+    channel), as its generated ``symcon_second`` makes them."""
+    return _second_order_body(*_group_entries(spec, build_symcon_tables(spec)))[1]
 
 
 def build_units(specs, precisions=("fp32",)):
@@ -167,6 +308,12 @@ def build_units(specs, precisions=("fp32",)):
     precisions, for :func:`repro_torch.kernels.cuda_lib.build`."""
     return [("symmetric_contraction.cu", spec_header(spec, p))
             for spec in specs for p in precisions]
+
+
+def second_order_unit(spec: SymConSpec):
+    """The build unit of ``spec``'s second-order kernel (fp32 at every
+    precision)."""
+    return (SYMCON_DBL.source, spec_header(spec, "fp32"))
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +385,55 @@ def symcon_bwd_plain(
     return dA, dW
 
 
+def symcon_dbl_plain(
+    A_t: torch.Tensor, W_t: torch.Tensor, G_t: torch.Tensor, U_t: torch.Tensor,
+    V_t: torch.Tensor, spec: SymConSpec,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dA_t, dW_t, dG_t): the VJP of :func:`symcon_bwd_plain`'s map
+    ``(A, W, G) -> (dA, dW)`` with cotangents ``U_t`` of dA and ``V_t`` of
+    dW, by the explicit product rule, group by group, in fp32 (the sums of
+    ``_second_order_body``, in its order)."""
+    groups, p_total = _group_entries(spec, build_symcon_tables(spec))
+    a, w, g, u, v = (t.unbind(1) for t in (A_t, W_t, G_t, U_t, V_t))
+    da, dw, dg = [None] * len(a), [None] * p_total, [None] * len(g)
+
+    def acc(buf, i, x):
+        buf[i] = x if buf[i] is None else buf[i] + x
+
+    def prod(ix, pairs, pos):  # as _prod
+        if len(pos) == 1:
+            return a[ix[pos[0]]]
+        return pairs[pos] if len(pos) == 2 else pairs[(0, 1)] * a[ix[2]]
+
+    def dprod(ix, pairs, pos):  # as _dprod
+        out = None
+        for y in pos:
+            rest = tuple(z for z in pos if z != y)
+            t = u[ix[y]] * prod(ix, pairs, rest) if rest else u[ix[y]]
+            out = t if out is None else out + t
+        return out
+
+    for (w_idx, out_idx, nu, _, ents) in groups:
+        gw, gv = g[out_idx] * w[w_idx], g[out_idx] * v[w_idx]
+        every = tuple(range(nu))
+        s = ds = None
+        for (ix, val) in ents:
+            pairs = {(x, y): a[ix[x]] * a[ix[y]] for x in every for y in every if x < y}
+            term_s = prod(ix, pairs, every) * val
+            term_ds = dprod(ix, pairs, every) * val
+            s, ds = (term_s, term_ds) if s is None else (s + term_s, ds + term_ds)
+            for x in every:
+                rest = tuple(y for y in every if y != x)
+                acc(da, ix[x], (gw * dprod(ix, pairs, rest) + gv * prod(ix, pairs, rest)) * val
+                    if rest else gv * val)
+        acc(dg, out_idx, w[w_idx] * ds + v[w_idx] * s)
+        acc(dw, w_idx, g[out_idx] * ds)
+
+    zeros = A_t.new_zeros((A_t.shape[0], A_t.shape[2]))
+    return tuple(torch.stack([zeros if c is None else c for c in buf], dim=1)
+                 for buf in (da, dw, dg))
+
+
 # ---------------------------------------------------------------------------
 # wrappers: kernel on a CUDA tensor, plain version on a CPU tensor
 # ---------------------------------------------------------------------------
@@ -301,6 +497,29 @@ def symcon_bwd(
     SYMCON_BWD(A_t.data_ptr(), W_t.data_ptr(), G_t.data_ptr(), dA.data_ptr(),
                dW.data_ptr(), N, k, header=spec_header(spec, precision))
     return dA, dW
+
+
+def symcon_dbl(
+    A_t: torch.Tensor, W_t: torch.Tensor, G_t: torch.Tensor, U_t: torch.Tensor,
+    V_t: torch.Tensor, spec: SymConSpec,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dA_t, dW_t, dG_t), the second order of :func:`symcon_bwd` with
+    cotangents ``U_t`` (dA's shape) and ``V_t`` (dW's): the CUDA kernel, fp32
+    whatever the first order's precision, for CUDA tensors; the plain
+    version for CPU tensors."""
+    N, d_in, k = _check_inputs(A_t, W_t, spec)
+    d_out = spec.out_spec.dim
+    _check("G_t", G_t, (N, d_out, k), A_t.device)
+    _check("U_t", U_t, A_t.shape, A_t.device)
+    _check("V_t", V_t, W_t.shape, A_t.device)
+    if not A_t.is_cuda:
+        return symcon_dbl_plain(A_t, W_t, G_t, U_t, V_t, spec)
+    dA, dW, dG = torch.empty_like(A_t), torch.empty_like(W_t), torch.empty_like(G_t)
+    if dA.numel() == 0:
+        return dA, dW, dG
+    SYMCON_DBL(*(t.data_ptr() for t in (A_t, W_t, G_t, U_t, V_t, dA, dW, dG)), N, k,
+               header=spec_header(spec, "fp32"))
+    return dA, dW, dG
 
 
 def round_on_card(x: torch.Tensor, spec: SymConSpec, precision: str) -> torch.Tensor:

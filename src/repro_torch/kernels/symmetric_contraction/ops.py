@@ -10,16 +10,17 @@ the plain-torch gather into the per-``(L, nu)`` weights with no custom code.
 
 Second order (forces inside the training loss make every step a
 grad-of-grad): the backward kernel is itself an ``autograd.Function``
-(:class:`_SymconBwdOp`) whose derivative is the double VJP of the plain
-twin ``kernel.symcon_plain`` (the port of ``symcon_xla_raw``), as the JAX
-package's ``_symcon_bwd_op`` takes it in XLA.  First order runs the
-hand-written kernels; only the derivative *of* the backward goes through
-the twin.  A third order raises.
+(:class:`_SymconBwdOp`) whose derivative is a third kernel,
+``kernel.symcon_dbl`` (its plain version ``symcon_dbl_plain`` on the CPU):
+the VJP of the backward's map, which the JAX package's ``_symcon_bwd_op``
+takes as the double VJP of its XLA twin ``symcon_xla_raw``; the tests hold
+it to autograd's double VJP of ``kernel.symcon_plain``, that twin's port.  A
+third order raises.
 
 Precision: ``symcon_cuda(..., precision=)`` selects the kernels' operand
 rounding (``kernels/precision.py``) for the forward and the first-order
-backward; the second order stays the fp32 double VJP of ``symcon_plain`` at
-every setting, as the JAX package's twins stay fp32.
+backward; the second order stays fp32 at every setting, as the JAX
+package's twins stay fp32.
 """
 from __future__ import annotations
 
@@ -33,12 +34,12 @@ from repro_torch.core.symmetric_contraction import SymConSpec
 from repro_torch.kernels import refuse_third_order
 from repro_torch.kernels.precision import check_precision
 
-from .kernel import gather_weights, symcon_bwd, symcon_fwd, symcon_plain
+from .kernel import gather_weights, symcon_bwd, symcon_dbl, symcon_fwd
 
 
 class _SymconBwdOp(torch.autograd.Function):
     """``(A_t, W_t, G_t) -> (dA_t, dW_t)``: the backward kernel, whose own
-    derivative is the double VJP of ``symcon_plain``."""
+    derivative is the second-order kernel ``symcon_dbl``."""
 
     @staticmethod
     def forward(ctx, A_t, W_t, G_t, spec, precision="fp32"):
@@ -49,16 +50,10 @@ class _SymconBwdOp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ddA, ddW):
         refuse_third_order("symcon backward")
-        spec = ctx.spec
-        with tracing.span("model.symcon_twin", tracing.handed_off()), torch.enable_grad():
-            a, w, g = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
-            dA, dW = torch.autograd.grad(symcon_plain(a, w, spec), (a, w), g,
-                                         create_graph=True)
-            da, dw, dg = torch.autograd.grad((dA, dW), (a, w, g), (ddA, ddW),
-                                             allow_unused=True)
-        return (torch.zeros_like(a) if da is None else da,
-                torch.zeros_like(w) if dw is None else dw,
-                torch.zeros_like(g) if dg is None else dg, None, None)
+        with tracing.span("model.symcon_twin", tracing.handed_off()):
+            da, dw, dg = symcon_dbl(*ctx.saved_tensors, ddA.contiguous(),
+                                    ddW.contiguous(), ctx.spec)
+        return da, dw, dg, None, None
 
 
 class _SymconOp(torch.autograd.Function):

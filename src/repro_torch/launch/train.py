@@ -192,7 +192,8 @@ def kernel_launches():
 
     return {"symcon_fwd": sck.SYMCON_FWD.launches, "symcon_bwd": sck.SYMCON_BWD.launches,
             "tp_scatter_fwd": tpk.TP_SCATTER_FWD.launches,
-            "tp_gather_bwd": tpk.TP_GATHER_BWD.launches}
+            "tp_gather_bwd": tpk.TP_GATHER_BWD.launches,
+            "symcon_dbl": sck.SYMCON_DBL.launches}
 
 
 def _supervise(args, argv) -> int:

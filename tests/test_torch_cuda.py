@@ -193,6 +193,58 @@ def test_wrappers_refuse_cpu_cuda_mix(dev):
 # ---------------------------------------------------------------------------
 
 
+# name: (correlation, N, k): the benchmark's two specs (2: the paper's, 3:
+# MACE-MP-0 medium's) at its width, N = 1,000 no multiple of the bins'
+# 32-atom blocks; and N * k = 960, no multiple of the kernel's 128 threads
+SECOND_ORDER_CASES = {"nu2_k128": (2, 1000, 128), "nu3_k128": (3, 1000, 128),
+                      "nu3_k24": (3, 40, 24)}
+
+
+def _second_order_operands(dev, name):
+    """(spec, [A, W, G, U, V]) of a ``SECOND_ORDER_CASES`` case."""
+    nu, N, k = SECOND_ORDER_CASES[name]
+    spec = SymConSpec(lspec(0, 1, 2, 3), lspec(0, 1), nu)
+    rng = np.random.default_rng(sum(map(ord, name)))
+    d_in, P, d_out = spec.in_spec.dim, sck.p_total_of(spec), spec.out_spec.dim
+    return spec, [_randn(rng, dev, N, d, k) for d in (d_in, P, d_out, d_in, P)]
+
+
+@pytest.mark.parametrize("name", sorted(SECOND_ORDER_CASES))
+def test_symcon_dbl_matches_plain_and_counts_one_launch(dev, name):
+    spec, ops = _second_order_operands(dev, name)
+    if name == "nu2_k128":
+        assert spec == CONFIG.symcon_spec()
+    before = sck.SYMCON_DBL.launches
+    got = sck.symcon_dbl(*ops, spec)
+    torch.cuda.synchronize()
+    assert sck.SYMCON_DBL.launches == before + 1
+    _close(got, sck.symcon_dbl_plain(*ops, spec))
+
+
+@pytest.mark.parametrize("name", ["nu2_k128", "nu3_k128"])
+def test_symcon_dbl_is_bitwise_deterministic(dev, name):
+    spec, ops = _second_order_operands(dev, name)
+    for a, b in zip(sck.symcon_dbl(*ops, spec), sck.symcon_dbl(*ops, spec)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("precision", ("bf16", "fp8"))
+def test_symcon_second_order_is_fp32_at_every_precision(dev, precision):
+    """Under a reduced first order the backward op's own derivative is the
+    fp32 one, bit for bit: the second order launches the fp32 build."""
+    from repro_torch.kernels.symmetric_contraction.ops import _SymconBwdOp
+
+    spec, (A, W, G, U, V) = _second_order_operands(dev, "nu2_k128")
+
+    def second(p):
+        ins = [t.clone().requires_grad_(True) for t in (A, W, G)]
+        dA, dW = _SymconBwdOp.apply(*ins, spec, p)
+        return torch.autograd.grad((dA * U).sum() + (dW * V).sum(), ins)
+
+    for a, b in zip(second(precision), second("fp32")):
+        assert torch.equal(a, b)
+
+
 def _grad_close(got, want):
     """The reference's gradient bound, 2e-4 of the largest magnitude: the
     card's ``index_add_`` sums in no fixed order."""
@@ -224,12 +276,13 @@ def test_symcon_grad_of_grad_matches_the_cpu(dev):
     species = torch.from_numpy(rng.integers(0, n_species, N))
     weights = {f"w_L{L}_nu{nu}": _randn(rng, cpu, *shp) for (L, nu), shp in
                spec.weight_shapes(n_species, k).items()}
-    before = sck.SYMCON_FWD.launches, sck.SYMCON_BWD.launches
+    before = sck.SYMCON_FWD.launches, sck.SYMCON_BWD.launches, sck.SYMCON_DBL.launches
     got = _second_order_symcon(dev, spec, A, species, weights, G, c)
     torch.cuda.synchronize()
-    # the first order on the card is the kernels' (one launch each); the
-    # derivative of the backward is the plain twin's
-    assert (sck.SYMCON_FWD.launches, sck.SYMCON_BWD.launches) == (before[0] + 1, before[1] + 1)
+    # one launch each: the first order's kernels and the backward's own
+    # derivative, the second-order kernel
+    assert (sck.SYMCON_FWD.launches, sck.SYMCON_BWD.launches, sck.SYMCON_DBL.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
     _grad_close(got, _second_order_symcon(torch.device("cpu"), spec, A, species,
                                           weights, G, c))
 
@@ -284,14 +337,17 @@ def test_interaction_grad_of_grad_matches_the_cpu(dev, layer):
 
 def _kernel_launches():
     return np.array([sck.SYMCON_FWD.launches, sck.SYMCON_BWD.launches,
-                     tpk.TP_SCATTER_FWD.launches, tpk.TP_GATHER_BWD.launches])
+                     tpk.TP_SCATTER_FWD.launches, tpk.TP_GATHER_BWD.launches,
+                     sck.SYMCON_DBL.launches])
 
 
 @pytest.mark.parametrize("n_ranks", [1, 2])
 def test_training_step_launches_each_kernel_per_bin(dev, n_ranks):
     """Per bin of a training step: each forward kernel once, each backward
     kernel twice (inside the forces' ``autograd.grad`` and in the loss's
-    backward); the second order goes through the plain twins."""
+    backward), the symmetric contraction's second-order kernel once (in
+    the loss's backward); the interaction's second order goes through its
+    plain twin."""
     import dataclasses
 
     from repro_torch.data.molecules import SyntheticCFMDataset
@@ -305,7 +361,7 @@ def test_training_step_launches_each_kernel_per_bin(dev, n_ranks):
     torch.cuda.synchronize()
     assert np.isfinite(hist[0]["loss"])
     assert (_kernel_launches() - before).tolist() == [2 * n_ranks, 4 * n_ranks,
-                                                      2 * n_ranks, 4 * n_ranks]
+                                                      2 * n_ranks, 4 * n_ranks, 2 * n_ranks]
 
 
 # ---------------------------------------------------------------------------
@@ -516,7 +572,7 @@ def test_replay_matches_eager_per_bucket(dev, impl):
             replay = _kernel_launches() - before - eager
             _close(got, want)
             assert replay.tolist() == eager.tolist()
-            assert eager.tolist() == ([2, 2, 2, 2] if impl == "cuda" else [0, 0, 0, 0])
+            assert eager.tolist() == ([2, 2, 2, 2, 0] if impl == "cuda" else [0] * 5)
         assert engine.compile_census() == {bucket_key(b): 1 for b in ladder}
     finally:
         engine.close()

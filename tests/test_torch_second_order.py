@@ -49,7 +49,11 @@ from repro_torch.data.blocking import block_edges
 from repro_torch.data.collate import BinShape, collate_bin
 from repro_torch.data.molecules import SyntheticCFMDataset
 from repro_torch.kernels.channelwise_tp import ops as tp_ops
-from repro_torch.kernels.symmetric_contraction.kernel import p_total_of
+from repro_torch.kernels.symmetric_contraction.kernel import (
+    p_total_of,
+    symcon_dbl_plain,
+    symcon_plain,
+)
 from repro_torch.kernels.symmetric_contraction.ops import _SymconBwdOp, symcon_cuda
 
 GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -128,6 +132,20 @@ def test_symcon_op_grad_of_grad_matches_jax(nu):
     (da,) = torch.autograd.grad((B * _t(G)).sum(), a, create_graph=True)
     got = torch.autograd.grad((da * _t(c)).sum(), [a, *tw.values()])
     _close(got, [want_a] + [want_w[k] for k in tw], **GRAD_TOL)
+
+
+@pytest.mark.parametrize("nu", [1, 2, 3])
+def test_symcon_dbl_plain_matches_the_double_vjp_of_symcon_plain(nu):
+    """The second order's explicit product rule (``_SymconBwdOp``'s CPU
+    path, and the plain version the card's ``symcon_dbl`` is held to)
+    against autograd's double VJP of the JAX-parity twin ``symcon_plain``,
+    with cotangents (cA, cW) of (dA, dW)."""
+    _, tspec, x = _symcon_case(nu, seed=30 + nu)
+    a, w, g = (_t(x[n], grad=True) for n in ("A", "W", "G"))
+    dA, dW = torch.autograd.grad(symcon_plain(a, w, tspec), (a, w), g, create_graph=True)
+    want = torch.autograd.grad((dA, dW), (a, w, g), (_t(x["cA"]), _t(x["cW"])))
+    got = symcon_dbl_plain(*(_t(x[n]) for n in ("A", "W", "G", "cA", "cW")), tspec)
+    _close(got, [t.numpy() for t in want], **TWIN_TOL)
 
 
 def test_symcon_refuses_a_third_order():

@@ -6,12 +6,19 @@ every row of b, dw and da is started once (a row no group reaches is
 evaluated with numpy in float32 on random A, W, G, agree with the plain
 versions ``symcon_plain`` and ``symcon_bwd_plain``.
 
+The second-order kernel's source, with the same header, is built for the
+host by g++ (the CUDA names stubbed, the grid run as a loop) and held to
+``symcon_dbl_plain``.
+
 Runs on the CPU.  Specs: the paper's; nu_max 1 (no entry reaches the
 l = 2, 3 rows of A in the backward); nu_max 3 on A irreps 0+1+2 (33 groups,
 523 entries); A irreps 0+1 -> B irreps 0+2 at nu_max 1, whose output rows
 1-5 no group reaches.
 """
 import re
+import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -205,3 +212,90 @@ def test_parsed_header_matches_the_plain_versions(name):
         w = w.numpy()
         assert got.shape == w.shape
         assert np.abs(got - w).max() <= 2e-5 * max(1.0, float(np.abs(w).max()))
+
+
+# the CUDA names csrc/symmetric_contraction_second.cu uses, for a host build
+HOST_CUDA = """#pragma once
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+struct HostDim { unsigned x; };
+static HostDim blockIdx, threadIdx;
+template <class T> inline T __ldg(const T* p) { return *p; }
+"""
+HOST_MAIN = r"""
+#include <cstdio>
+#include <cstdlib>
+int main(int argc, char** argv) {
+  const int N = atoi(argv[1]), k = atoi(argv[2]);
+  const long n_in = (long)N * D_IN * k, n_w = (long)N * P_TOTAL * k, n_g = (long)N * D_OUT * k;
+  float *A = new float[n_in], *W = new float[n_w], *G = new float[n_g], *U = new float[n_in];
+  float *V = new float[n_w], *dA = new float[n_in], *dW = new float[n_w], *dG = new float[n_g];
+  FILE* f = fopen(argv[3], "rb");
+  if (fread(A, 4, n_in, f) + fread(W, 4, n_w, f) + fread(G, 4, n_g, f) + fread(U, 4, n_in, f)
+      + fread(V, 4, n_w, f) != (size_t)(2 * n_in + 2 * n_w + n_g)) return 1;
+  fclose(f);
+  for (unsigned b = 0; b * THREADS < (unsigned long)N * k; ++b)
+    for (unsigned t = 0; t < THREADS; ++t) {
+      blockIdx.x = b;
+      threadIdx.x = t;
+      symcon_dbl_kernel(A, W, G, U, V, dA, dW, dG, N, k);
+    }
+  f = fopen(argv[4], "wb");
+  fwrite(dA, 4, n_in, f); fwrite(dW, 4, n_w, f); fwrite(dG, 4, n_g, f);
+  fclose(f);
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("name", sorted(SPECS))
+def test_second_order_source_built_for_the_host_matches_the_plain_version(name, tmp_path):
+    """The kernel's indexing, the header's switch and its sums, run on the
+    CPU: every thread of the grid (N * k = 35, one partial block) against
+    ``symcon_dbl_plain`` at the kernel tolerance."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the kernel source for the host")
+    spec = SPECS[name]
+    source = (Path(sck.__file__).resolve().parents[2] / "csrc" / sck.SYMCON_DBL.source).read_text()
+    (tmp_path / "cuda_runtime.h").write_text(HOST_CUDA)
+    (tmp_path / "spec.h").write_text(sck.spec_header(spec, "fp32"))
+    (tmp_path / "kernel.cpp").write_text(source.split('extern "C"')[0] + HOST_MAIN)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-w", f"-I{tmp_path}", '-DKERNEL_HEADER="spec.h"',
+                    "-o", str(tmp_path / "kernel"), str(tmp_path / "kernel.cpp")],
+                   check=True, timeout=240)
+    rng = np.random.default_rng(sum(map(ord, name)))
+    N, k = 5, 7
+    d_in, P, d_out = spec.in_spec.dim, sck.p_total_of(spec), spec.out_spec.dim
+    ops = [rng.standard_normal((N, d, k), dtype=np.float32) for d in (d_in, P, d_out, d_in, P)]
+    (tmp_path / "in.bin").write_bytes(b"".join(x.tobytes() for x in ops))
+    subprocess.run([str(tmp_path / "kernel"), str(N), str(k), str(tmp_path / "in.bin"),
+                    str(tmp_path / "out.bin")], check=True, timeout=60)
+    out = np.fromfile(tmp_path / "out.bin", np.float32)
+    got = np.split(out, [N * d_in * k, N * (d_in + P) * k])
+    want = sck.symcon_dbl_plain(*map(torch.from_numpy, ops), spec)
+    for g, w in zip(got, want):
+        w = w.numpy().ravel()
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= 2e-5 * max(1.0, float(np.abs(w).max()))
+
+
+# a CG entry of order nu in symcon_second: its pair products, s and ds, and
+# da's product-rule term for each of its nu positions, each summed in (the
+# first entry of a group starts s and ds, so two adds fewer)
+ENTRY_OPS = {1: 6, 2: 18, 3: 37}
+
+
+@pytest.mark.parametrize("name", sorted(SPECS))
+def test_second_order_ops_count_the_generated_arithmetic(name):
+    """``second_order_ops`` (the operations of chip_smoke's bound for the
+    second-order kernel) against a count by hand: per
+    entry ``ENTRY_OPS``; per group gw and gv, dg's two products summed in,
+    and dw's product, summed in unless the group starts a weight row."""
+    groups = _groups(SPECS[name])
+    want = 0
+    for i, (w_idx, _, nu, n, _) in enumerate(groups):
+        starts_row = i == 0 or groups[i - 1][0] != w_idx
+        want += n * ENTRY_OPS[nu] - 2 + 2 + 4 + (1 if starts_row else 2)
+    assert sck.second_order_ops(SPECS[name]) == want

@@ -7,7 +7,7 @@ GPU, at every kernel impl and precision, and its LM family, and check them.
 Run from the repository root (the script finds ``src/repro_torch`` next to
 itself).  Phases, none of them caught, so any failure exits nonzero:
 
-1. build the CUDA kernels from ``src/repro_torch/csrc``: eleven libraries, one
+1. build the CUDA kernels from ``src/repro_torch/csrc``: fifteen libraries, one
    ``nvcc`` each, all started together (the symmetric-contraction source and
    the interaction source for each layer's tensor-product spec, each at
    fp32, bf16 and fp8, with the generated header of that spec and
@@ -17,8 +17,12 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    ``round_to``, bit for bit, on a table of edge cases and 100,000 random
    values (the libraries include the symmetric contraction's second-order
    kernel, ``symmetric_contraction_second.cu``, fp32, built for the paper's
-   spec and for MACE-MP-0 medium's correlation 3, held to the same ptxas
-   report; phase 14 checks it);
+   spec, for MACE-MP-0 medium's correlation 3 and for MACE-MP-0 large's l =
+   2 hidden features, held to the same ptxas report; phase 14 checks it;
+   the first-order source at fp32 for both MACE-MP-0 specs, held to it
+   too, and the interaction source at fp32 for MACE-MP-0 large's layer 1,
+   whose report is printed and not gated (its ``tp_gather_bwd`` spills 64
+   bytes), all checked in phase 14);
 2. hold each of the four kernels at each precision against its plain
    PyTorch version on the card, at the shapes the 256-atom bucket of the
    paper's model gives it (both interaction layers; receivers with a hub
@@ -219,16 +223,22 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    device in a world of one (plain tensors, ``launch/dryrun.py::
    trace_single_device``), its ``peak_gb`` within ``DRYRUN_PEAK_RTOL`` of
    the bytes phase 12 (a) measured for the model, m, v and the steps;
-14. the symmetric contraction's second-order kernel at 3,072 atoms, at
-   both specs, against its plain version, two launches bit-identical, one
-   launch counted per call, and timed beside its bound and the plain
-   version's time.  It runs last: run first, in phase 1, its plain
+14. the MACE-MP-0 specs, fp32, at 3,072 atoms: the first-order symmetric
+   contraction at medium's and large's spec, and the interaction kernels at
+   large's layer 1 (l = 2 hidden features, 17 paths) on the edge blocking
+   of phase 4's first bin, each against its plain version, two launches
+   bit-identical, timed by CUDA events and by the profiler (L2 zeroed
+   before each launch) beside its bound; then the symmetric contraction's
+   second-order kernel at each spec of phase 1, against its plain version,
+   two calls bit-identical, its launches counted (one a call; two for
+   MACE-MP-0 large, whose call makes one per part), and timed beside its
+   bound and the plain version's time.  It runs last: run first, in phase 1, its plain
    version's eager work left phase 6's CUDA-only profiler sessions
    recording 14 or 17 of every 20 launches they timed;
 15. report: the card's name and power limit, one JSON line of kernel
    numbers (each kernel at each precision, the identity-blocked
    interaction kernels, and the second order's training counts and phase
-   14's rows; the fp32 entries also carry the data-parallel runs'
+   14's second-order rows; phase 14's MP-0 rows print a line of their own; the fp32 entries also carry the data-parallel runs'
    launches, the autotune phase's and the elastic phase's), and last a
    JSON line with ``"ok": true``.
 
@@ -263,6 +273,7 @@ import torch.distributed as dist  # noqa: E402
 
 from repro_torch.bridge import params_to, unflatten  # noqa: E402
 from repro_torch.configs.mace_cfm import CONFIG  # noqa: E402
+from repro_torch.configs.mace_mp0_large import CONFIG as MP0_LARGE  # noqa: E402
 from repro_torch.core.mace import init_mace, mace_energy_forces  # noqa: E402
 from repro_torch.core.symmetric_contraction import symcon_ref  # noqa: E402
 from repro_torch.data.blocking import (  # noqa: E402
@@ -322,8 +333,9 @@ TRAIN_STEPS = 5
 # forward kernels once; the backward kernels inside the forces' autograd.grad
 # and again in the loss's backward; the symmetric contraction's second-order
 # kernel once, as the derivative of its backward in the loss's backward (the
-# interaction's backward takes its plain twin's).  Serving launches the
-# first four and never the second order.
+# interaction's backward takes its plain twin's), one launch a call at the
+# paper's spec (MACE-MP-0 large's call makes one per part, two).  Serving
+# launches the first four and never the second order.
 PER_BIN = {"symcon_fwd": 2, "symcon_bwd": 4, "tp_scatter_fwd": 2, "tp_gather_bwd": 4,
            "symcon_dbl": 2}
 # the card against the CPU over a short trajectory: the cross-implementation
@@ -408,10 +420,28 @@ KERNELS = {
 
 # the symmetric contraction's second order (a kernel the JAX package leaves
 # to XLA), checked and timed at TRAIN_ATOMS for each spec the benchmark's
-# training cells run: the paper's correlation 2 and MACE-MP-0 medium's 3
+# training cells run: the paper's correlation 2, MACE-MP-0 medium's 3 and
+# MACE-MP-0 large's l = 2 hidden features (two launches a call)
 SECOND_ORDER_SYMBOL = "symcon_dbl_kernel"
+# the MACE-MP-0 configurations of the benchmark's training cells (medium's
+# kernels are the paper's at correlation 3)
+MP0_CONFIGS = {"mace_mp0_medium": dataclasses.replace(CONFIG, correlation=3),
+               "mace_mp0_large": MP0_LARGE}
 SECOND_ORDER_SPECS = {"mace_cfm": CONFIG.symcon_spec(),
-                      "mace_mp0_medium": dataclasses.replace(CONFIG, correlation=3).symcon_spec()}
+                      **{name: cfg.symcon_spec() for name, cfg in MP0_CONFIGS.items()}}
+# the first-order kernels at correlation 3 (both MACE-MP-0 specs), and the
+# interaction kernels at the MP-0 layers' tensor-product specs that the
+# paper's layers do not have (large's layer 1), fp32: built and held to the
+# same ptxas report as the paper's, checked in phase 14
+FIRST_ORDER_MP0_SPECS = {name: cfg.symcon_spec() for name, cfg in MP0_CONFIGS.items()}
+MP0_TP_SPECS = {(name, layer): cfg.tp_spec_at(layer)
+                for name, cfg in MP0_CONFIGS.items() for layer in range(cfg.n_interactions)
+                if cfg.tp_spec_at(layer) not in
+                {CONFIG.tp_spec_at(i) for i in range(CONFIG.n_interactions)}}
+# libraries whose ptxas report is printed and not gated: at MACE-MP-0 large's
+# layer 1 (17 paths, d_h 9) tp_gather_bwd spills 64 bytes a thread at its
+# 128-register bound, a kernel this configuration runs unchanged (PERF.md §7)
+REPORTED_ONLY = {f"tp {name} layer {layer} fp32" for name, layer in MP0_TP_SPECS}
 # the kernels whose launches are counted (the keys of PER_BIN): KERNELS and
 # the second order, whose library is fp32 at every precision
 COUNTED = {**{name: spec["kernel"] for name, spec in KERNELS.items()},
@@ -447,14 +477,14 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, symbol: str, reps: int, before=None):
-    """``(ms, recorded)``: mean device milliseconds per launch of the kernel
-    ``symbol`` over the ``recorded`` launches the profiler records in
-    ``reps`` calls of ``fn``, after a warm-up: the kernel's own time,
-    without the host work around the launch.  ``before``, if given, runs
-    before each call (an L2 flush).  A run that records fewer than
-    ``MIN_RECORDED`` of the launches is measured again, twice at most, and
-    then fails."""
+def _device_ms(fn, symbol: str, reps: int, before=None, per_call: int = 1):
+    """``(ms, recorded)``: mean device milliseconds per call of ``fn`` in
+    the kernel ``symbol`` (``per_call`` launches of it a call) over the
+    ``recorded`` launches the profiler records in ``reps`` calls, after a
+    warm-up: the kernel's own time, without the host work around the
+    launch.  ``before``, if given, runs before each call (an L2 flush).  A
+    run that records fewer than ``MIN_RECORDED`` of the launches is measured
+    again, twice at most, and then fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -468,12 +498,13 @@ def _device_ms(fn, symbol: str, reps: int, before=None):
             torch.cuda.synchronize()
         mine = [e for e in prof.key_averages() if symbol in e.key]
         us, seen = sum(map(_device_us, mine)), sum(e.count for e in mine)
-        if seen != reps:
-            print(f"profiler: {seen} launches of {symbol} recorded of {reps}", flush=True)
-        if us > 0 and seen >= MIN_RECORDED * reps:
-            return us / seen / 1e3, seen
-    raise AssertionError(f"the profiler recorded {seen} launches of {symbol} of {reps}, "
-                         f"device time {us} us")
+        if seen != reps * per_call:
+            print(f"profiler: {seen} launches of {symbol} recorded of {reps * per_call}",
+                  flush=True)
+        if us > 0 and seen >= MIN_RECORDED * reps * per_call:
+            return us / seen * per_call / 1e3, seen
+    raise AssertionError(f"the profiler recorded {seen} launches of {symbol} of "
+                         f"{reps * per_call}, device time {us} us")
 
 
 def _bound_ms(n_bytes: float, n_ops: float):
@@ -519,8 +550,8 @@ def _symcon_second_work(spec, N, k):
 def check_second_order(dev):
     """Phase 14's second-order check at ``TRAIN_ATOMS`` atoms and the paper's
     width, per spec of ``SECOND_ORDER_SPECS``: the kernel against
-    ``symcon_dbl_plain`` (``KERNEL_TOL``), two launches bit-identical, one
-    launch counted per call; then its CUDA-event ms per wrapper call, its
+    ``symcon_dbl_plain`` (``KERNEL_TOL``), two calls bit-identical, one
+    launch counted per part of ``second_order_parts`` a call; then its CUDA-event ms per wrapper call, its
     profiler device ms per launch (L2 flushed before each), its bound and
     the plain version's ms.  Prints one JSON line and returns its rows."""
     rows = []
@@ -534,12 +565,13 @@ def check_second_order(dev):
         def run():
             return sck.symcon_dbl(*ops, spec)
 
+        parts = len(sck.second_order_parts(spec))
         before = sck.SYMCON_DBL.launches
         got = run()
         torch.cuda.synchronize()
-        if sck.SYMCON_DBL.launches != before + 1:
+        if sck.SYMCON_DBL.launches != before + parts:
             raise AssertionError(f"second order {name}: {sck.SYMCON_DBL.launches - before} "
-                                 "launches counted for one call")
+                                 f"launches counted for one call of {parts}")
         err, scale, ok = _compare(got, sck.symcon_dbl_plain(*ops, spec))
         if not ok:
             raise AssertionError(f"second order {name} disagrees with its plain version: "
@@ -549,10 +581,11 @@ def check_second_order(dev):
         n_bytes, n_ops = _symcon_second_work(spec, N, k)
         bound, bound_by = _bound_ms(n_bytes, n_ops)
         flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
-        device_ms, recorded = _device_ms(run, SECOND_ORDER_SYMBOL, 20, before=flush.zero_)
+        device_ms, recorded = _device_ms(run, SECOND_ORDER_SYMBOL, 20, before=flush.zero_,
+                                         per_call=parts)
         row = dict(spec=name, N=N, k=k, max_abs_err=err, scale=scale,
-                   ms=_time_ms(run, reps=20), device_ms=device_ms,
-                   device_launches_recorded=recorded, device_launches_made=20,
+                   ms=_time_ms(run, reps=20), device_ms=device_ms, launches_per_call=parts,
+                   device_launches_recorded=recorded, device_launches_made=20 * parts,
                    bound_ms=bound, bound_by=bound_by, share_of_bound=bound / device_ms,
                    plain_ms=_time_ms(lambda: sck.symcon_dbl_plain(*ops, spec), reps=2),
                    gflop=n_ops / 1e9, mbytes=n_bytes / 1e6)
@@ -562,6 +595,47 @@ def check_second_order(dev):
         rows.append(row)
         del ops, got, flush
     print(json.dumps({"second_order": rows}), flush=True)
+    return rows
+
+
+def check_mp0_kernels(dev, blk):
+    """Phase 14's kernels at the MACE-MP-0 specs, fp32, over ``TRAIN_ATOMS``
+    atoms: ``symcon_fwd`` and ``symcon_bwd`` at each spec of
+    ``FIRST_ORDER_MP0_SPECS``, ``tp_scatter_fwd`` and ``tp_gather_bwd`` at
+    each of ``MP0_TP_SPECS`` on the edge blocking ``blk`` (the paper's
+    training bin), each checked and timed as ``check_training_size`` does
+    (against its plain version, two launches bit-identical, CUDA-event ms,
+    bound), then its profiler device ms per launch with L2 zeroed before
+    each.  Prints one JSON line and returns its rows."""
+    rng = np.random.default_rng(SEED + 3)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    rows = []
+    for name, cfg in MP0_CONFIGS.items():
+        for layer in range(cfg.n_interactions):
+            wanted = {"symcon_fwd", "symcon_bwd"} if layer == 0 else set()
+            if (name, layer) in MP0_TP_SPECS:
+                wanted |= {"tp_scatter_fwd", "tp_gather_bwd"}
+            if not wanted:
+                continue
+            calls = _kernel_calls(dev, rng, blk, TRAIN_ATOMS, layer, config=cfg,
+                                  precisions=("fp32",), library=False)
+            for (kernel, _), c in calls.items():
+                if kernel not in wanted:
+                    continue
+                r = _check_call(kernel, f"{name} N={TRAIN_ATOMS} layer {layer} fp32", c)
+                device_ms, recorded = _device_ms(c["run"], KERNELS[kernel]["symbol"], 20,
+                                                 before=flush.zero_)
+                rows.append(dict(config=name, kernel=kernel, layer=layer, N=TRAIN_ATOMS,
+                                 max_abs_err=r["err"], ms=r["ms"], device_ms=device_ms,
+                                 device_launches_recorded=recorded, bound_ms=r["bound"],
+                                 share_of_bound=r["bound"] / device_ms,
+                                 plain_ms=r["plain_ms"]))
+                print(f"mp0 {name} {kernel} layer {layer}: device_ms={device_ms:.4f} "
+                      f"bound_ms={r['bound']:.4f} share={r['bound'] / device_ms:.3f}",
+                      flush=True)
+            del calls
+    del flush
+    print(json.dumps({"mp0_kernels": rows}), flush=True)
     return rows
 
 
@@ -615,16 +689,17 @@ def _bucket_blocking(rng, bucket):
     return blk
 
 
-def _kernel_calls(dev, rng, blk, N, layer):
-    """The four kernels' calls at one interaction layer's shapes over ``N``
-    atoms and the slots of the edge blocking ``blk``, on fresh random
-    inputs, at every precision, keyed by (kernel, precision): each with its
-    plain version at that precision, the bytes and operations its inputs
-    need (the same at every precision: the operands stay fp32), the
-    symmetric contraction's library baseline (at bf16 and fp8 on the
-    operands rounded as those builds round them), and at bf16 and fp8 the
-    fp32 call on the same inputs."""
-    T, bn, k = blk.n_atom_tiles, blk.block_n, CONFIG.channels
+def _kernel_calls(dev, rng, blk, N, layer, config=CONFIG, precisions=PRECISIONS,
+                  library=True):
+    """The four kernels' calls at one interaction layer's shapes of
+    ``config`` over ``N`` atoms and the slots of the edge blocking ``blk``,
+    on fresh random inputs, at each of ``precisions``, keyed by (kernel,
+    precision): each with its plain version at that precision, the bytes
+    and operations its inputs need (the same at every precision: the
+    operands stay fp32), if ``library`` the symmetric contraction's library
+    baseline (at bf16 and fp8 on the operands rounded as those builds round
+    them), and at bf16 and fp8 the fp32 call on the same inputs."""
+    T, bn, k = blk.n_atom_tiles, blk.block_n, config.channels
     E_p = blk.perm.shape[0]
     n_valid = int(blk.valid.sum())
     local = torch.from_numpy(blk.local_rcv).to(dev)
@@ -635,18 +710,18 @@ def _kernel_calls(dev, rng, blk, N, layer):
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
 
-    spec = CONFIG.symcon_spec()
+    spec = config.symcon_spec()
     d_in, d_out, P = spec.in_spec.dim, spec.out_spec.dim, sck.p_total_of(spec)
     (fwd_bytes, fwd_ops), (bwd_bytes, bwd_ops) = _symcon_work(spec, N, k)
     kw = dict(n_tiles=T, block_n=bn)
     A_t, W_t, G_t = randn(N, d_in, k), randn(N, P, k), randn(N, d_out, k)
-    tp = CONFIG.tp_spec_at(layer)
+    tp = config.tp_spec_at(layer)
     d_sh, d_h, n_paths, d_a = tp.y_spec.dim, tp.h_spec.dim, tp.n_paths, tp.out_spec.dim
     n_ent = len(tpk.tp_entries(tp))
     Y_b, h_b, R_b = randn(E_p, d_sh), randn(E_p, d_h, k), randn(E_p, n_paths, k)
     G_a = randn(T * bn, d_a, k)
     slot_bytes = 4 * n_valid * (d_sh + (d_h + n_paths) * k) + 5 * E_p
-    lib_fwd, lib_bwd = _symcon_library(A_t, W_t, G_t, spec)
+    lib_fwd, lib_bwd = _symcon_library(A_t, W_t, G_t, spec) if library else (None, None)
 
     def at(p):
         return {
@@ -675,8 +750,11 @@ def _kernel_calls(dev, rng, blk, N, layer):
         }
 
     fp32 = at("fp32")
+    if not library:
+        for c in fp32.values():
+            c.pop("library", None)
     calls = {(name, "fp32"): c for name, c in fp32.items()}
-    for p in PRECISIONS[1:]:
+    for p in precisions[1:]:
         # the reduced builds compute in fp32 on rounded operands: symcon_ref
         # on the same rounded operands computes their function
         lib = dict(zip(("symcon_fwd", "symcon_bwd"), _symcon_library(
@@ -3174,10 +3252,12 @@ def lm_multi_device_phase(card, lm_train):
 
 
 def kernel_units():
-    """(label, (source, header)) of the eleven kernel libraries: the
+    """(label, (source, header)) of the fifteen kernel libraries: the
     symmetric contraction's spec and both layers' tensor-product specs, each
-    at every precision, and the second order (fp32) of each spec of
-    ``SECOND_ORDER_SPECS``."""
+    at every precision, the second order (fp32) of each spec of
+    ``SECOND_ORDER_SPECS``, the first order (fp32) of each of
+    ``FIRST_ORDER_MP0_SPECS`` and the interaction (fp32) of each of
+    ``MP0_TP_SPECS``."""
     units = []
     for p in PRECISIONS:
         units += [(f"symcon {p}", u) for u in sck.build_units([CONFIG.symcon_spec()], [p])]
@@ -3186,6 +3266,11 @@ def kernel_units():
                   for u in tpk.build_units([CONFIG.tp_spec_at(layer)], [p])]
     units += [(f"symcon second {name}", sck.second_order_unit(spec))
               for name, spec in SECOND_ORDER_SPECS.items()]
+    units += [(f"symcon {name} fp32", u) for name, spec in FIRST_ORDER_MP0_SPECS.items()
+              for u in sck.build_units([spec], ["fp32"])]
+    units += [(f"tp {name} layer {layer} fp32", u)
+              for (name, layer), tp in MP0_TP_SPECS.items()
+              for u in tpk.build_units([tp], ["fp32"])]
     return units
 
 
@@ -3295,6 +3380,9 @@ def main() -> int:
             print(f"ptxas {library} ({label}) {kernel}: {report}")
             stack_or_spill = re.findall(r"(\d+) bytes (?:stack frame|spill)", report)
             if any(int(n) for n in stack_or_spill):
+                if label in REPORTED_ONLY:
+                    print(f"ptxas {kernel} ({label}) spills: reported, not gated")
+                    continue
                 raise AssertionError(f"{kernel} ({label}) uses a stack frame or spills: {report}")
     check_rounding(dev)
 
@@ -3338,6 +3426,7 @@ def main() -> int:
     elastic_launches = elastic_phase(card)
     lm = lm_phase(card)
     lm_multi_device_phase(card, lm["train"])
+    check_mp0_kernels(dev, blk)
     second_order = check_second_order(dev)
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s")

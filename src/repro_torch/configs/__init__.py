@@ -1,5 +1,6 @@
 """Config registry of the port: one module per assigned architecture (+ the
-paper's own MACE CFM workload, ``mace_cfm``).  ``get_config(name)`` returns
+paper's own MACE CFM workload, ``mace_cfm``, and MACE-MP-0 large,
+``mace_mp0_large``).  ``get_config(name)`` returns
 the full published config; ``get_reduced(name)`` the same family scaled down
 for CPU tests.  A copy of the JAX package's ``configs/__init__.py``, with
 ``torch`` dtypes in the configs.
@@ -50,6 +51,11 @@ def get_config(name: str) -> ArchConfig:
 
 def get_reduced(name: str) -> ArchConfig:
     return _module(name).REDUCED
+
+
+def get_edge_factor(name: str) -> int:
+    """Edge slots per atom of a bin for a MACE configuration's graphs."""
+    return _module(name).EDGE_FACTOR
 
 
 def all_configs() -> Dict[str, ArchConfig]:

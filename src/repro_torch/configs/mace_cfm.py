@@ -19,6 +19,10 @@ CONFIG = MaceConfig(
     interaction_impl="cuda",
 )
 
+# edge slots per atom of a bin: the synthetic graphs have at most 25.2
+# edges an atom at 4.5 A
+EDGE_FACTOR = 32
+
 # The JAX REDUCED has n_species=8, but SyntheticCFMDataset draws 10 species
 # (data/molecules.py N_SPECIES): XLA clamps the out-of-range embedding
 # gathers of species 8 and 9 onto row 7, where torch raises.  The port's

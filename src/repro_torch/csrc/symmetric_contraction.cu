@@ -15,19 +15,18 @@
 // KERNEL_HEADER that repro_torch/kernels/symmetric_contraction/kernel.py::
 // spec_header generates: the operand precision PRECISION (round_op.cuh), the
 // dimensions D_IN, P_TOTAL, D_OUT and the CG groups (one per
-// (term, eta, M), in table order) unrolled into straight-line scalar
-// statements: symcon_contract (per group s = sum of val * prod A[m_x], then
-// b[M] = / += w[eta] * s) and symcon_transpose (per group dw[eta] = / +=
-// g[M] * s; then dA row by row, the product-rule terms of the entries that
-// hold the row).  Every operand and output index is a compile-time
-// constant, so a thread's A, W, G, B, dA and dW columns are registers, as
-// the TPU kernels unroll the same groups at trace time.
+// (term, eta, M), in table order) unrolled into the cases of a switch inside
+// a loop that is not unrolled: symcon_forward (per group s = sum of val *
+// prod A[m_x], then b[M] += w[eta] * s) and symcon_backward (per group the
+// same s, the product-rule terms of dA entry by entry, dw[eta] = / += g[M] *
+// s).  Every operand and output index is a compile-time constant, so the
+// running sums and a thread's B (g and dA) columns are registers, as the TPU
+// kernels unroll the same groups at trace time.
 //
 // Precision (the JAX package's pallas_bf16 / pallas_fp8 variants): a bf16 or
-// fp8 build rounds every loaded A, W and G element (round_all in
-// load_column, in the registers they were loaded into) and computes in fp32
-// as the fp32 build does.  The arrays stay fp32, so every build moves the
-// same bytes.
+// fp8 build rounds every loaded A, W and G element (round_op in the load the
+// header's functions are given) and computes in fp32 as the fp32 build
+// does.  The arrays stay fp32, so every build moves the same bytes.
 //
 // What bounds both on this card: bytes.  Per (atom, channel) the forward
 // reads d_in + p_total floats and writes d_out (16 + 9 in, 4 out at the
@@ -41,20 +40,27 @@
 //
 // Design: one thread per (atom n, channel c), a flat bounds-checked grid
 // over N * k with channels on the lanes, so every row of every operand is
-// read and written by a warp as one coalesced 128-byte line.  A thread
-// issues all its loads (25 in the forward, 29 in the backward) before any
-// arithmetic, runs the header's sums in registers and writes each element
-// of B (of dA and dW) exactly once: no zeroing pass, no read-modify-write
-// of device memory, no run-time table, no atomics.  Every sum runs in the
-// header's fixed order (entries in table order inside a group, groups in
-// table order), so two launches give bit-identical outputs; the plain
-// versions sum in the same order but may round differently where the
-// compiler fuses a multiply and an add, so the stated tolerance is 2e-5 of
-// the output's largest magnitude (chip_smoke.py).
+// read and written by a warp as one coalesced 128-byte line.  Consecutive
+// groups share a case up to 192 CG entries (the paper's spec, 90 entries, is
+// one case of straight-line code that loads its rows of A and W before any
+// arithmetic, 40 and 64 registers), and a larger group is cut into cases;
+// each case loads the rows of A it uses, from L1 after the first case, and
+// a weight row where its run of groups starts.  A thread writes each element of B (of dA and dW)
+// exactly once: no zeroing pass, no read-modify-write of device memory, no
+// run-time table, no atomics.  Straight-line code over correlation 3's
+// entries spilled (592 and 408 bytes a thread at MACE-MP-0 medium's 2,396
+// entries, 2.7-2.8 KB at large's 7,101), because the compilers keep
+// products of A shared by entries far apart live in between; the loop keeps
+// no product across cases.  Every sum runs in the header's fixed order
+// (entries in table order inside a group, groups in table order), so two
+// launches give bit-identical outputs; the plain versions sum in the same
+// order but may round differently where the compiler fuses a multiply and
+// an add, so the stated tolerance is 2e-5 of the output's largest
+// magnitude (chip_smoke.py).
 //
-// ptxas (sm_90a, -O3) at the paper's spec: chip_smoke.py phase 1 prints the
-// report and requires 0 bytes of stack frame and 0 bytes of spills for both
-// kernels.
+// ptxas (sm_90a, -O3): chip_smoke.py phase 1 prints the report and requires
+// 0 bytes of stack frame and 0 bytes of spills for both kernels at the
+// paper's spec and at both MACE-MP-0 specs.
 #include <cuda_runtime.h>
 
 #ifndef KERNEL_HEADER
@@ -70,20 +76,13 @@ namespace {
 // (PERF.md, Findings)
 constexpr int THREADS = 128;
 
-template <int D>
-__device__ __forceinline__ void load_column(const float* __restrict__ col,
-                                            long k, float (&v)[D]) {
-#pragma unroll
-  for (int m = 0; m < D; ++m) v[m] = __ldg(col + m * k);
-  round_all(v);
-}
-
-template <int D>
-__device__ __forceinline__ void store_column(float* __restrict__ col, long k,
-                                             const float (&v)[D]) {
-#pragma unroll
-  for (int m = 0; m < D; ++m) col[m * k] = v[m];
-}
+// the load of one operand the header's functions make: rounded to the
+// build's precision
+struct RoundedLoad {
+  __device__ __forceinline__ float operator()(const float* __restrict__ p) const {
+    return round_op(__ldg(p));
+  }
+};
 
 __global__ void __launch_bounds__(THREADS) symcon_fwd_kernel(
     const float* __restrict__ A, const float* __restrict__ W,
@@ -92,11 +91,8 @@ __global__ void __launch_bounds__(THREADS) symcon_fwd_kernel(
   if (t >= static_cast<long>(N) * k) return;
   const long n = t / k;
   const long c = t - n * k;
-  float a[D_IN], w[P_TOTAL], b[D_OUT];
-  load_column(A + n * D_IN * k + c, k, a);
-  load_column(W + n * P_TOTAL * k + c, k, w);
-  symcon_contract(a, w, b);
-  store_column(B + n * D_OUT * k + c, k, b);
+  symcon_forward(A + n * D_IN * k + c, W + n * P_TOTAL * k + c,
+                 B + n * D_OUT * k + c, k, RoundedLoad());
 }
 
 __global__ void __launch_bounds__(THREADS) symcon_bwd_kernel(
@@ -107,13 +103,9 @@ __global__ void __launch_bounds__(THREADS) symcon_bwd_kernel(
   if (t >= static_cast<long>(N) * k) return;
   const long n = t / k;
   const long c = t - n * k;
-  float a[D_IN], w[P_TOTAL], g[D_OUT], da[D_IN], dw[P_TOTAL];
-  load_column(A + n * D_IN * k + c, k, a);
-  load_column(W + n * P_TOTAL * k + c, k, w);
-  load_column(G + n * D_OUT * k + c, k, g);
-  symcon_transpose(a, w, g, da, dw);
-  store_column(dA + n * D_IN * k + c, k, da);
-  store_column(dW + n * P_TOTAL * k + c, k, dw);
+  symcon_backward(A + n * D_IN * k + c, W + n * P_TOTAL * k + c,
+                  G + n * D_OUT * k + c, dA + n * D_IN * k + c,
+                  dW + n * P_TOTAL * k + c, k, RoundedLoad());
 }
 
 // round_op on n values: the rounding of this build, checked against the
@@ -123,6 +115,12 @@ __global__ void __launch_bounds__(THREADS) round_values_kernel(
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i < n) y[i] = round_op(x[i]);
 }
+
+}  // namespace
+
+// ---- host launchers
+
+namespace {
 
 unsigned blocks_for(int N, int k) {
   const long total = static_cast<long>(N) * k;

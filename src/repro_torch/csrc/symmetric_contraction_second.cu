@@ -16,7 +16,7 @@
 //
 // Built once per symmetric-contraction spec with the fp32 header of
 // repro_torch/kernels/symmetric_contraction/kernel.py::spec_header, whose
-// symcon_second holds the CG groups as straight-line statements: per group
+// symcon_second holds the CG groups as scalar statements: per group
 // j (weight row eta, output row M) s_j and its derivative along U, ds_j;
 // dG[M] += W[eta] ds_j + V[eta] s_j, dW[eta] += G[M] ds_j, and per entry and
 // factor the product-rule terms of dA.  The second order is fp32 whatever
@@ -40,9 +40,16 @@
 // U it uses, from L1 after the first case, so no product is kept across
 // cases or hoisted out of the loop.  G, the dA and dG sums, the running
 // group sums and the current weight row's W, V and dW sum stay in registers.
-// Every sum runs in the header's fixed order (groups, entries, factors), so
-// two launches give bit-identical outputs.  ptxas must report 0 bytes of
-// stack frame and of spills (chip_smoke.py).
+// A spec with more output rows than a launch keeps live runs in
+// SECOND_ORDER_PARTS launches, one per run of output irreps, each an
+// instance symcon_dbl_kernel<PART> of its own registers (MACE-MP-0 large:
+// rows 0-3, then the five rows of l = 2; its 9 rows in one launch spilled
+// 48 bytes a thread, and both parts in one function 144); each keeps its
+// rows of G and dG live, and a later part starts dA's sums from the ones
+// the part before stored.  Every sum runs in the header's fixed order (groups,
+// entries, factors), across the parts as in one, so two calls give
+// bit-identical outputs.  ptxas must report 0 bytes of stack frame and of
+// spills (chip_smoke.py).
 #include <cuda_runtime.h>
 
 #ifndef KERNEL_HEADER
@@ -54,6 +61,7 @@ namespace {
 
 constexpr int THREADS = 128;
 
+template <int PART>
 __global__ void __launch_bounds__(THREADS) symcon_dbl_kernel(
     const float* __restrict__ A, const float* __restrict__ W,
     const float* __restrict__ G, const float* __restrict__ U,
@@ -64,7 +72,28 @@ __global__ void __launch_bounds__(THREADS) symcon_dbl_kernel(
   const long n = t / k;
   const long c = t - n * k;
   const long in = n * D_IN * k + c, w = n * P_TOTAL * k + c, out = n * D_OUT * k + c;
-  symcon_second(A + in, W + w, G + out, U + in, V + w, dA + in, dW + w, dG + out, k);
+  symcon_second<PART>(A + in, W + w, G + out, U + in, V + w, dA + in, dW + w, dG + out,
+                      k);
+}
+
+}  // namespace
+
+// ---- host launchers
+
+namespace {
+
+// the parts from PART on, in order, on one stream
+template <int PART>
+int launch_parts(unsigned blocks, const float* A, const float* W, const float* G,
+                 const float* U, const float* V, float* dA, float* dW, float* dG, int N,
+                 int k, cudaStream_t stream) {
+  if constexpr (PART < SECOND_ORDER_PARTS) {
+    symcon_dbl_kernel<PART><<<blocks, THREADS, 0, stream>>>(A, W, G, U, V, dA, dW, dG, N, k);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch_parts<PART + 1>(blocks, A, W, G, U, V, dA, dW, dG, N, k, stream);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -74,6 +103,5 @@ extern "C" int symcon_dbl(const float* A, const float* W, const float* G,
                           float* dG, int N, int k, cudaStream_t stream) {
   const long total = static_cast<long>(N) * k;
   const unsigned blocks = static_cast<unsigned>((total + THREADS - 1) / THREADS);
-  symcon_dbl_kernel<<<blocks, THREADS, 0, stream>>>(A, W, G, U, V, dA, dW, dG, N, k);
-  return static_cast<int>(cudaGetLastError());
+  return launch_parts<0>(blocks, A, W, G, U, V, dA, dW, dG, N, k, stream);
 }

@@ -165,7 +165,9 @@ class CudaKernel:
             self.launches += n
             self.launches_by_header[header] = self.launches_by_header.get(header, 0) + n
 
-    def __call__(self, *args, header: str) -> None:
+    def __call__(self, *args, header: str, launches: int = 1) -> None:
+        """Run the entry point, which makes ``launches`` device launches of
+        the kernel, and count them."""
         fn = self._bind(header)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*args, stream)
@@ -177,14 +179,14 @@ class CudaKernel:
         tally = _captures.get(stream)
         if tally is not None:
             with _captures_lock:
-                tally[(self, header)] = tally.get((self, header), 0) + 1
+                tally[(self, header)] = tally.get((self, header), 0) + launches
         elif torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
                 f"CUDA kernel {self.symbol} was captured into a graph outside "
                 "recording_launches: its replays would go uncounted"
             )
         else:
-            self.add_launches(header, 1)
+            self.add_launches(header, launches)
 
 
 # (kernel, header) -> launches captured into one graph

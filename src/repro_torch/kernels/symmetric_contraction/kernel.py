@@ -10,7 +10,8 @@ replaces no TPU kernel (the JAX package leaves that derivative to XLA).
 Like the TPU kernels, which unroll the CG groups at trace time, each source
 is built once per (spec, precision) with a generated header
 (:func:`spec_header`) that unrolls the groups of :func:`_group_entries` into
-straight-line scalar sums over one (atom, channel)'s operands in registers.
+scalar sums over one (atom, channel)'s columns, in the cases of a switch
+inside a loop that is not unrolled.
 Beside each kernel is its plain PyTorch version over the same CG groups:
 
 * :func:`symcon_plain` — port of the JAX ``symcon_xla_raw``;
@@ -96,94 +97,208 @@ def p_total_of(spec: SymConSpec) -> int:
 
 @functools.lru_cache(maxsize=None)
 def spec_header(spec: SymConSpec, precision: str = "fp32") -> str:
-    """The header ``csrc/symmetric_contraction.cu`` is built with for
+    """The header the symmetric-contraction sources are built with for
     ``spec`` at ``precision``: the operand rounding (``PRECISION``), the
-    spec's dimensions and the groups of :func:`_group_entries`, in table
-    order, unrolled into straight-line scalar statements over one (atom,
-    channel)'s operands in registers.
+    spec's dimensions and three functions over one (atom, channel)'s
+    columns, each a switch inside a loop that is not unrolled, whose cases
+    hold the groups of :func:`_group_entries` in table order:
 
-    ``symcon_contract(a, w, b)``, the forward: per group
-    ``s = / += Π a[m_x] * val`` over its entries, then
-    ``b[out] = / += w[eta] * s``.  ``symcon_transpose(a, w, g, da, dw)``,
-    the backward: per group the same ``s``, ``dw[eta] = / += g[out] * s`` and
-    ``const float gwJ = g[out] * w[eta]``; then, row by row of A, ``da[m] =
-    / +=`` the product-rule terms ``gwJ * (Π_{y != x} a[m_y] * val)`` of the
-    entries that hold m, in (group, entry, x) order.
-    A row that no group reaches is set to ``0.f``, so every output register
-    is written by compile-time code.  ``symcon_second(A, W, G, U, V, dA, dW,
-    dG, k)``, the second order (the VJP of the backward's map with
-    cotangents U of dA and V of dW), reads and writes one (atom, channel)'s
-    columns itself, in cases of a switch (:func:`_second_order_body`)."""
+    * ``symcon_forward(A, W, B, k, ld)`` (:func:`_first_order_body`): per
+      group ``s = / += Π a[m_x] * val`` over its entries, then ``b[out] +=
+      w[eta] * s``;
+    * ``symcon_backward(A, W, G, dA, dW, k, ld)``: per group the same ``s``
+      and, per entry and position x, ``da[m_x] += g[out] w[eta] * (Π_{y != x}
+      a[m_y] * val)``; ``dw[eta] = / += g[out] * s``;
+    * ``symcon_second<PART>(A, W, G, U, V, dA, dW, dG, k)``, the second
+      order (the VJP of the backward's map with cotangents U of dA and V of
+      dW; :func:`_second_order_body`), one specialisation for each of the
+      ``SECOND_ORDER_PARTS`` launches.
+
+    ``ld`` is the source's load of one operand (``round_op`` of ``__ldg``);
+    the second order loads fp32 itself."""
     groups, p_total = _group_entries(spec, build_symcon_tables(spec))
     if any(nu > 3 for (_, _, nu, _, _) in groups):
         raise NotImplementedError("the CUDA symcon kernels take nu <= 3")
     d_in, d_out = spec.in_spec.dim, spec.out_spec.dim
-
-    def sums(ents):
-        return [f"  s {'=' if j == 0 else '+='} "
-                f"{' * '.join([f'a[{m}]' for m in ix] + [f32_literal(v)])};"
-                for j, (ix, v) in enumerate(ents)]
-
-    def zeros(target, n, reached):
-        return [f"  {target}[{r}] = 0.f;" for r in range(n) if r not in reached]
-
-    fwd, bwd = [], []
-    b_seen, dw_seen = set(), set()
-    da_terms: Dict[int, List[str]] = {m: [] for m in range(d_in)}
-    for j, (w_idx, out_idx, nu, _, ents) in enumerate(groups):
-        fwd += sums(ents)
-        fwd.append(f"  b[{out_idx}] {'+=' if out_idx in b_seen else '='} "
-                   f"w[{w_idx}] * s;")
-        b_seen.add(out_idx)
-        bwd += sums(ents)
-        bwd.append(f"  dw[{w_idx}] {'+=' if w_idx in dw_seen else '='} "
-                   f"g[{out_idx}] * s;")
-        dw_seen.add(w_idx)
-        bwd.append(f"  const float gw{j} = g[{out_idx}] * w[{w_idx}];")
-        for (ix, v) in ents:
-            for x in range(nu):
-                rest = [f"a[{m}]" for y, m in enumerate(ix) if y != x]
-                da_terms[ix[x]].append(
-                    f"gw{j} * ({' * '.join(rest + [f32_literal(v)])})" if rest
-                    else f"gw{j} * {f32_literal(v)}")
-    fwd += zeros("b", d_out, b_seen)
-    bwd += zeros("dw", p_total, dw_seen)
-    for m, terms in da_terms.items():
-        if not terms:
-            bwd.append(f"  da[{m}] = 0.f;")
-        bwd += [f"  da[{m}] {'=' if j == 0 else '+='} {t};" for j, t in enumerate(terms)]
+    parts = second_order_parts(spec)
+    fwd, bwd = _first_order_body(groups, p_total)
     return "\n".join([
         "// Generated by repro_torch/kernels/symmetric_contraction/kernel.py::spec_header",
         f"// for {spec!r}.",
         "#pragma once",
         precision_define(precision),
         f"constexpr int D_IN = {d_in}, P_TOTAL = {p_total}, D_OUT = {d_out};",
-        "__device__ __forceinline__ void symcon_contract(",
-        "    const float (&a)[D_IN], const float (&w)[P_TOTAL], float (&b)[D_OUT]) {",
-        "  float s;",
+        f"constexpr int SECOND_ORDER_PARTS = {len(parts)};",
+        "template <class Load>",
+        "__device__ __forceinline__ void symcon_forward(",
+        "    const float* __restrict__ A, const float* __restrict__ W,",
+        "    float* __restrict__ B, long k, Load ld) {",
         *fwd,
         "}",
-        "__device__ __forceinline__ void symcon_transpose(",
-        "    const float (&a)[D_IN], const float (&w)[P_TOTAL], const float (&g)[D_OUT],",
-        "    float (&da)[D_IN], float (&dw)[P_TOTAL]) {",
-        "  float s;",
+        "template <class Load>",
+        "__device__ __forceinline__ void symcon_backward(",
+        "    const float* __restrict__ A, const float* __restrict__ W,",
+        "    const float* __restrict__ G, float* __restrict__ dA,",
+        "    float* __restrict__ dW, long k, Load ld) {",
         *bwd,
         "}",
+        "template <int PART>",
         "__device__ __forceinline__ void symcon_second(",
         "    const float* __restrict__ A, const float* __restrict__ W,",
         "    const float* __restrict__ G, const float* __restrict__ U,",
         "    const float* __restrict__ V, float* __restrict__ dA,",
-        "    float* __restrict__ dW, float* __restrict__ dG, long k) {",
-        *_second_order_body(groups, p_total)[0],
-        "}",
+        "    float* __restrict__ dW, float* __restrict__ dG, long k);",
+        *_second_order_body(groups, p_total, parts)[0],
         "",
     ])
 
 
+# most CG entries in one case of the first-order kernels' switch: consecutive
+# groups share a case up to it, and a larger group is cut into balanced
+# cases of at most it; the paper's spec (90 entries) is one case.  Cases of
+# 48 and 96 spilled at a MACE-MP-0 spec, 192 at neither and ran fastest
+# (PERF.md, Findings)
+FIRST_ORDER_CASE_ENTRIES = 192
 # most CG entries in one case of symcon_second's switch: at correlation 3
 # a case of one whole group (up to 126 entries) spilled, and cases of 64
 # took 10% longer than cases of 96 (PERF.md, Findings)
 SECOND_ORDER_CASE_ENTRIES = 96
+# most output rows one launch of the second order keeps live (its rows of
+# G and the dG sums), unless one irrep alone has more: MACE-MP-0 large's 9
+# rows in one launch spilled (PERF.md, Findings)
+SECOND_ORDER_PART_ROWS = 4
+
+
+def _cuts(n: int, most: int) -> List[Tuple[int, int]]:
+    """``[0, n)`` in balanced consecutive pieces of at most ``most``."""
+    pieces = -(-n // most)
+    ends = [round(i * n / pieces) for i in range(pieces + 1)]
+    return list(zip(ends, ends[1:]))
+
+
+def _runs(groups):
+    """Per group: (first, last) of its run of groups of one weight row."""
+    return [(gi == 0 or groups[gi - 1][0] != g[0],
+             gi == len(groups) - 1 or groups[gi + 1][0] != g[0])
+            for gi, g in enumerate(groups)]
+
+
+def _loop(n_cases: int, cases: List[str]) -> List[str]:
+    return ["#pragma unroll 1",
+            f"  for (int j = 0; j < {n_cases}; ++j) {{",
+            "    switch (j) {",
+            *cases,
+            "    }",
+            "  }"]
+
+
+def _case(j: int, loads: List[str], lines: List[str]) -> List[str]:
+    return [f"    case {j}: {{", *(f"      {x}" for x in loads + lines), "    } break;"]
+
+
+def _first_order_body(groups, p_total: int) -> Tuple[List[str], List[str]]:
+    """The statements of ``symcon_forward`` and ``symcon_backward``.
+
+    Consecutive groups share a case up to ``FIRST_ORDER_CASE_ENTRIES``
+    entries, and a larger group is cut into balanced cases; each case loads
+    the rows of A it uses, and a weight row's w when its run of groups
+    starts, except that a body of one case (the paper's spec) loads its
+    weight rows with A, before any arithmetic, as the straight-line code
+    did (loaded where each run starts, its forward took 7% longer at 256
+    atoms; at MACE-MP-0 medium's 15 cases loading them with A took 10%
+    longer: PERF.md, Findings).  b (forward), g and da (backward) stay in
+    registers across
+    cases, as do the running sum s, the group's g[out] w[eta] and the run's
+    w and dw (stored when the run ends).  Every sum runs in table order:
+    groups, entries, positions, as the plain versions sum.  Straight-line
+    code over all entries spilled 2.7-2.8 KB a thread at MACE-MP-0 large's
+    7,101 entries (PERF.md, Findings)."""
+    pieces, cur, n = [], [], 0
+    for gi, (*_, ents) in enumerate(groups):
+        if len(ents) > FIRST_ORDER_CASE_ENTRIES or n + len(ents) > FIRST_ORDER_CASE_ENTRIES:
+            if cur:
+                pieces.append(cur)
+            cur, n = [], 0
+        if len(ents) > FIRST_ORDER_CASE_ENTRIES:
+            pieces += [[(gi, c0, c1)] for c0, c1 in _cuts(len(ents), FIRST_ORDER_CASE_ENTRIES)]
+        else:
+            cur.append((gi, 0, len(ents)))
+            n += len(ents)
+    if cur:
+        pieces.append(cur)
+    runs = _runs(groups)
+    hoist_w = len(pieces) == 1
+    fwd_cases, bwd_cases = [], []
+    for j, piece in enumerate(pieces):
+        fwd, bwd, used, w_rows = [], [], set(), []
+        for gi, c0, c1 in piece:
+            w_idx, out_idx, nu, _, ents = groups[gi]
+            first_of_run, last_of_run = runs[gi]
+            if c0 == 0:
+                if first_of_run:
+                    w_rows.append(w_idx)
+                    w = f"w{w_idx}" if hoist_w else f"ld(W + {w_idx} * k)"
+                    fwd.append(f"wr = {w};")
+                    bwd.append(f"wr = {w};")
+                bwd.append(f"gw = g[{out_idx}] * wr;")
+            for e in range(c0, c1):
+                ix, val = ents[e]
+                used.update(ix)
+                c = f32_literal(val)
+                s = f"s {'=' if e == 0 else '+='} {' * '.join([f'a{m}' for m in ix] + [c])};"
+                fwd.append(s)
+                bwd.append(s)
+                for x in range(nu):
+                    rest = [f"a{m}" for y, m in enumerate(ix) if y != x]
+                    bwd.append(f"da[{ix[x]}] += gw * ({' * '.join(rest + [c])});" if rest
+                               else f"da[{ix[x]}] += gw * {c};")
+            if c1 == len(ents):
+                fwd.append(f"b[{out_idx}] += wr * s;")
+                bwd.append(f"dwr {'=' if first_of_run else '+='} g[{out_idx}] * s;")
+                if last_of_run:
+                    bwd.append(f"dW[{w_idx} * k] = dwr;")
+        loads = ["const float " + ", ".join(f"a{m} = ld(A + {m} * k)" for m in sorted(used)) + ";"]
+        if hoist_w and w_rows:
+            loads.append("const float " + ", ".join(f"w{r} = ld(W + {r} * k)" for r in w_rows)
+                         + ";")
+        fwd_cases += _case(j, loads, fwd)
+        bwd_cases += _case(j, loads, bwd)
+    reached = {w_idx for (w_idx, *_rest) in groups}
+    forward = [
+        "  float b[D_OUT];",
+        "  float s = 0.f, wr = 0.f;",
+        "#pragma unroll",
+        "  for (int m = 0; m < D_OUT; ++m) b[m] = 0.f;",
+        *_loop(len(pieces), fwd_cases),
+        "#pragma unroll",
+        "  for (int m = 0; m < D_OUT; ++m) B[m * k] = b[m];",
+    ]
+    backward = [
+        "  float g[D_OUT], da[D_IN];",
+        "  float s = 0.f, wr = 0.f, gw = 0.f, dwr = 0.f;",
+        "#pragma unroll",
+        "  for (int m = 0; m < D_OUT; ++m) g[m] = ld(G + m * k);",
+        "#pragma unroll",
+        "  for (int m = 0; m < D_IN; ++m) da[m] = 0.f;",
+        *(f"  dW[{r} * k] = 0.f;" for r in range(p_total) if r not in reached),
+        *_loop(len(pieces), bwd_cases),
+        "#pragma unroll",
+        "  for (int m = 0; m < D_IN; ++m) dA[m * k] = da[m];",
+    ]
+    return forward, backward
+
+
+def second_order_parts(spec: SymConSpec) -> List[Tuple[int, int]]:
+    """The output rows ``[r0, r1)`` of each launch of the second order: runs
+    of whole output irreps of at most ``SECOND_ORDER_PART_ROWS`` rows (an
+    irrep with more alone)."""
+    parts = []
+    for _, sl in spec.out_spec.slices():
+        if parts and sl.stop - parts[-1][0] <= SECOND_ORDER_PART_ROWS:
+            parts[-1] = (parts[-1][0], sl.stop)
+        else:
+            parts.append((sl.start, sl.stop))
+    return parts
 
 
 def _prod(ix, pos) -> str:
@@ -206,7 +321,7 @@ def _dprod(ix, pos) -> str:
     return " + ".join(terms)
 
 
-def _second_order_body(groups, p_total: int) -> Tuple[List[str], int]:
+def _second_order_body(groups, p_total: int, parts) -> Tuple[List[str], int]:
     """The statements of ``symcon_second``, and the arithmetic operations
     they make per (atom, channel): each ``*``, `` + `` and ``+=`` of the
     statements that compute.  The backward maps (a, w, g) to
@@ -228,79 +343,101 @@ def _second_order_body(groups, p_total: int) -> Tuple[List[str], int]:
     Straight-line code over all entries spills at correlation 3: the
     compilers keep products of A shared by entries far apart live between
     them, and a case that reads A only from registers lets them hoist every
-    product out of the loop."""
-    cases, n_cases, n_ops = [], 0, 0
-    for gi, (w_idx, out_idx, nu, _, ents) in enumerate(groups):
-        first_of_run = gi == 0 or groups[gi - 1][0] != w_idx
-        last_of_run = gi == len(groups) - 1 or groups[gi + 1][0] != w_idx
-        n_cuts = -(-len(ents) // SECOND_ORDER_CASE_ENTRIES)
-        cuts = [round(i * len(ents) / n_cuts) for i in range(n_cuts + 1)]
-        every = tuple(range(nu))
-        for c0, c1 in zip(cuts, cuts[1:]):
-            lines, math, used = [], [], set()
-            if c0 == 0:
-                if first_of_run:
-                    lines.append(f"wr = __ldg(W + {w_idx} * k); vr = __ldg(V + {w_idx} * k);")
-                math.append(f"gw = g[{out_idx}] * wr; gv = g[{out_idx}] * vr;")
-            for e in range(c0, c1):
-                ix, val = ents[e]
-                used.update(ix)
-                c = f32_literal(val)
-                pairs = ", ".join(f"p{x}{y} = a{ix[x]} * a{ix[y]}"
-                                  for x in every for y in every if x < y)
-                stmts = [f"const float {pairs};"] if pairs else []
-                op = "=" if e == 0 else "+="
-                stmts += [f"s {op} {_prod(ix, every)} * {c};",
-                          f"ds {op} ({_dprod(ix, every)}) * {c};"]
-                for x in every:
-                    rest = tuple(y for y in every if y != x)
-                    stmts.append(f"da[{ix[x]}] += " + (
-                        f"(gw * ({_dprod(ix, rest)}) + gv * {_prod(ix, rest)}) * {c};"
-                        if rest else f"gv * {c};"))
-                math.append("{ " + " ".join(stmts) + " }")
-            if c1 == len(ents):
-                math.append(f"dg[{out_idx}] += wr * ds + vr * s;")
-                math.append(f"dwr {'=' if first_of_run else '+='} g[{out_idx}] * ds;")
-            n_ops += sum(line.count("*") + line.count(" + ") + line.count("+=")
-                         for line in math)  # not the "+" of a literal's exponent
-            lines += math
-            if c1 == len(ents) and last_of_run:
-                lines.append(f"dW[{w_idx} * k] = dwr;")
-            rows = sorted(used)
-            cases += [f"    case {n_cases}: {{",
-                      "      const float " + ", ".join(
-                          f"a{m} = __ldg(A + {m} * k)" for m in rows) + ";",
-                      "      const float " + ", ".join(
-                          f"u{m} = __ldg(U + {m} * k)" for m in rows) + ";",
-                      *(f"      {line}" for line in lines),
-                      "    } break;"]
-            n_cases += 1
+    product out of the loop.
+
+    The groups of each part of ``parts`` (output rows ``[r0, r1)``; the
+    tables hold the groups output irrep by irrep, so a part's groups are
+    consecutive) are the specialisation ``symcon_second<p>``, launched on
+    its own, in order, as a kernel of its own registers; it keeps only its
+    rows of g and dg live, and a later part starts its da sums from the dA
+    the one before stored, so each sum runs in table order across the
+    launches as in one."""
+    runs = _runs(groups)
+    part_of = [next(p for p, (r0, r1) in enumerate(parts) if r0 <= out_idx < r1)
+               for (_, out_idx, *_rest) in groups]
+    assert part_of == sorted(part_of), "a part's groups must be consecutive"
     reached = {w_idx for (w_idx, *_rest) in groups}
-    return ([
-        "  float g[D_OUT], da[D_IN], dg[D_OUT];",
-        "  float s = 0.f, ds = 0.f, gw = 0.f, gv = 0.f, wr = 0.f, vr = 0.f, dwr = 0.f;",
-        "#pragma unroll",
-        "  for (int m = 0; m < D_OUT; ++m) { g[m] = __ldg(G + m * k); dg[m] = 0.f; }",
-        "#pragma unroll",
-        "  for (int m = 0; m < D_IN; ++m) da[m] = 0.f;",
-        *(f"  dW[{r} * k] = 0.f;" for r in range(p_total) if r not in reached),
-        "#pragma unroll 1",
-        f"  for (int j = 0; j < {n_cases}; ++j) {{",
-        "    switch (j) {",
-        *cases,
-        "    }",
-        "  }",
-        "#pragma unroll",
-        "  for (int m = 0; m < D_IN; ++m) dA[m * k] = da[m];",
-        "#pragma unroll",
-        "  for (int m = 0; m < D_OUT; ++m) dG[m * k] = dg[m];",
-    ], n_ops)
+    bodies, n_ops = [], 0
+    for p, (r0, r1) in enumerate(parts):
+        cases, n_cases = [], 0
+        for gi, (w_idx, out_idx, nu, _, ents) in enumerate(groups):
+            if part_of[gi] != p:
+                continue
+            first_of_run, last_of_run = runs[gi]
+            o = out_idx - r0
+            every = tuple(range(nu))
+            for c0, c1 in _cuts(len(ents), SECOND_ORDER_CASE_ENTRIES):
+                lines, math, used = [], [], set()
+                if c0 == 0:
+                    if first_of_run:
+                        lines.append(f"wr = __ldg(W + {w_idx} * k); vr = __ldg(V + {w_idx} * k);")
+                    math.append(f"gw = g[{o}] * wr; gv = g[{o}] * vr;")
+                for e in range(c0, c1):
+                    ix, val = ents[e]
+                    used.update(ix)
+                    c = f32_literal(val)
+                    pairs = ", ".join(f"p{x}{y} = a{ix[x]} * a{ix[y]}"
+                                      for x in every for y in every if x < y)
+                    stmts = [f"const float {pairs};"] if pairs else []
+                    op = "=" if e == 0 else "+="
+                    stmts += [f"s {op} {_prod(ix, every)} * {c};",
+                              f"ds {op} ({_dprod(ix, every)}) * {c};"]
+                    for x in every:
+                        rest = tuple(y for y in every if y != x)
+                        stmts.append(f"da[{ix[x]}] += " + (
+                            f"(gw * ({_dprod(ix, rest)}) + gv * {_prod(ix, rest)}) * {c};"
+                            if rest else f"gv * {c};"))
+                    math.append("{ " + " ".join(stmts) + " }")
+                if c1 == len(ents):
+                    math.append(f"dg[{o}] += wr * ds + vr * s;")
+                    math.append(f"dwr {'=' if first_of_run else '+='} g[{o}] * ds;")
+                n_ops += sum(line.count("*") + line.count(" + ") + line.count("+=")
+                             for line in math)  # not the "+" of a literal's exponent
+                lines += math
+                if c1 == len(ents) and last_of_run:
+                    lines.append(f"dW[{w_idx} * k] = dwr;")
+                rows = sorted(used)
+                cases += _case(n_cases, [
+                    "const float " + ", ".join(f"a{m} = __ldg(A + {m} * k)" for m in rows) + ";",
+                    "const float " + ", ".join(f"u{m} = __ldg(U + {m} * k)" for m in rows) + ";",
+                ], lines)
+                n_cases += 1
+        rows_of = "D_OUT" if (r0, r1) == (0, parts[-1][1]) else str(r1 - r0)
+        g_rows = "G" if r0 == 0 else f"(G + {r0} * k)"
+        dg_rows = "dG" if r0 == 0 else f"(dG + {r0} * k)"
+        bodies.append([
+            f"  float g[{rows_of}], da[D_IN], dg[{rows_of}];",
+            "  float s = 0.f, ds = 0.f, gw = 0.f, gv = 0.f, wr = 0.f, vr = 0.f, dwr = 0.f;",
+            "#pragma unroll",
+            f"  for (int m = 0; m < {rows_of}; ++m) "
+            f"{{ g[m] = __ldg({g_rows} + m * k); dg[m] = 0.f; }}",
+            "#pragma unroll",
+            # a later part's sums go on from the ones the part before stored
+            "  for (int m = 0; m < D_IN; ++m) da[m] = " + ("0.f;" if p == 0 else "dA[m * k];"),
+            *(f"  dW[{r} * k] = 0.f;" for r in range(p_total) if r not in reached and p == 0),
+            *_loop(n_cases, cases),
+            "#pragma unroll",
+            "  for (int m = 0; m < D_IN; ++m) dA[m * k] = da[m];",
+            "#pragma unroll",
+            f"  for (int m = 0; m < {rows_of}; ++m) {dg_rows}[m * k] = dg[m];",
+        ])
+    out = []
+    for p, body in enumerate(bodies):
+        out += ["template <>",
+                f"__device__ __forceinline__ void symcon_second<{p}>(",
+                "    const float* __restrict__ A, const float* __restrict__ W,",
+                "    const float* __restrict__ G, const float* __restrict__ U,",
+                "    const float* __restrict__ V, float* __restrict__ dA,",
+                "    float* __restrict__ dW, float* __restrict__ dG, long k) {",
+                *body, "}"]
+    return out, n_ops
 
 
 def second_order_ops(spec: SymConSpec) -> int:
     """Arithmetic operations of ``spec``'s second-order kernel per (atom,
     channel), as its generated ``symcon_second`` makes them."""
-    return _second_order_body(*_group_entries(spec, build_symcon_tables(spec)))[1]
+    return _second_order_body(*_group_entries(spec, build_symcon_tables(spec)),
+                              second_order_parts(spec))[1]
 
 
 def build_units(specs, precisions=("fp32",)):
@@ -505,7 +642,8 @@ def symcon_dbl(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dA_t, dW_t, dG_t), the second order of :func:`symcon_bwd` with
     cotangents ``U_t`` (dA's shape) and ``V_t`` (dW's): the CUDA kernel, fp32
-    whatever the first order's precision, for CUDA tensors; the plain
+    whatever the first order's precision, one launch per part of
+    :func:`second_order_parts` (each counted), for CUDA tensors; the plain
     version for CPU tensors."""
     N, d_in, k = _check_inputs(A_t, W_t, spec)
     d_out = spec.out_spec.dim
@@ -518,7 +656,7 @@ def symcon_dbl(
     if dA.numel() == 0:
         return dA, dW, dG
     SYMCON_DBL(*(t.data_ptr() for t in (A_t, W_t, G_t, U_t, V_t, dA, dW, dG)), N, k,
-               header=spec_header(spec, "fp32"))
+               header=spec_header(spec, "fp32"), launches=len(second_order_parts(spec)))
     return dA, dW, dG
 
 

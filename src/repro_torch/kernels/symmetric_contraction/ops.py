@@ -37,6 +37,16 @@ from repro_torch.kernels.precision import check_precision
 from .kernel import gather_weights, symcon_bwd, symcon_dbl, symcon_fwd
 
 
+def _count_spec(sp: tracing.Span, rows: int, k: int, spec: SymConSpec) -> None:
+    """The counters of a ``model.symcon`` / ``model.symcon_twin`` span: the
+    atoms launched (padded), the channels and the spec."""
+    sp.count("rows", rows)
+    sp.count("channels", k)
+    sp.count("hidden_lmax", spec.out_spec.lmax)
+    sp.count("a_lmax", spec.in_spec.lmax)
+    sp.count("correlation", spec.nu_max)
+
+
 class _SymconBwdOp(torch.autograd.Function):
     """``(A_t, W_t, G_t) -> (dA_t, dW_t)``: the backward kernel, whose own
     derivative is the second-order kernel ``symcon_dbl``."""
@@ -50,7 +60,9 @@ class _SymconBwdOp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ddA, ddW):
         refuse_third_order("symcon backward")
-        with tracing.span("model.symcon_twin", tracing.handed_off()):
+        with tracing.span("model.symcon_twin", tracing.handed_off()) as sp:
+            if sp is not None:
+                _count_spec(sp, ddA.shape[0], ddA.shape[2], ctx.spec)
             da, dw, dg = symcon_dbl(*ctx.saved_tensors, ddA.contiguous(),
                                     ddW.contiguous(), ctx.spec)
         return da, dw, dg, None, None
@@ -84,13 +96,16 @@ def symcon_cuda(
     """Registered ``symcon/cuda`` impl (``cuda_bf16`` / ``cuda_fp8`` at a
     reduced ``precision``): B [N, k, d_out]."""
     check_precision(precision)
-    N = A.shape[0]
+    N, k = A.shape[0], A.shape[1]
     pad = (-N) % block_n
-    Wg = gather_weights(weights, species, spec)      # [N, k, P]
-    A_t = A.transpose(1, 2)                          # [N, d_in, k]
-    W_t = Wg.transpose(1, 2)                         # [N, P, k]
-    if pad:
-        A_t = F.pad(A_t, (0, 0, 0, 0, 0, pad))
-        W_t = F.pad(W_t, (0, 0, 0, 0, 0, pad))
-    B_t = _SymconOp.apply(A_t.contiguous(), W_t.contiguous(), spec, precision)
+    with tracing.span("model.symcon") as sp:
+        if sp is not None:
+            _count_spec(sp, N + pad, k, spec)
+        Wg = gather_weights(weights, species, spec)      # [N, k, P]
+        A_t = A.transpose(1, 2)                          # [N, d_in, k]
+        W_t = Wg.transpose(1, 2)                         # [N, P, k]
+        if pad:
+            A_t = F.pad(A_t, (0, 0, 0, 0, 0, pad))
+            W_t = F.pad(W_t, (0, 0, 0, 0, 0, pad))
+        B_t = _SymconOp.apply(A_t.contiguous(), W_t.contiguous(), spec, precision)
     return B_t[:N].transpose(1, 2)                   # [N, k, d_out]

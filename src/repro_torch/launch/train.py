@@ -1,4 +1,5 @@
-"""Cluster training entry point of the port: MACE CFM, one process per rank.
+"""Cluster training entry point of the port: MACE CFM (or another MACE
+configuration of ``repro_torch.configs``, ``--config``), one process per rank.
 
 The counterpart of the JAX package's ``launch/train.py``.  A cluster's
 launcher starts this module once per rank with ``--distributed`` and the
@@ -7,6 +8,7 @@ rendezvous (``--coordinator --num-processes --process-id``, or the
 and sets those vars:
 
     PYTHONPATH=src python -m repro_torch.launch.train --steps 100
+    PYTHONPATH=src python -m repro_torch.launch.train --config mace_mp0_large
     PYTHONPATH=src python -m repro_torch.launch.multihost --nprocs 2 -- \\
         python -m repro_torch.launch.train --distributed --device cpu \\
         --reduced --steps 5 --compress-grads
@@ -58,6 +60,8 @@ import sys
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--config", default="mace_cfm",
+                    help="the MACE configuration of repro_torch.configs to train")
     ap.add_argument("--reduced", action="store_true",
                     help="run the reduced config (CPU-sized)")
     ap.add_argument("--ckpt-dir", default=None,
@@ -113,7 +117,8 @@ def main(argv=None) -> int:
 
     import torch.distributed as dist
 
-    from repro_torch.configs.mace_cfm import CONFIG, REDUCED
+    from repro_torch.configs import get_config, get_edge_factor, get_reduced
+    from repro_torch.core.mace import MaceConfig
     from repro_torch.data.molecules import SyntheticCFMDataset
     from repro_torch.train.train_loop import Trainer, TrainerConfig
 
@@ -152,11 +157,14 @@ def main(argv=None) -> int:
     if args.n_nodes is not None:
         extra["n_nodes"] = args.n_nodes
 
-    cfg = REDUCED if args.reduced else CONFIG
+    cfg = get_reduced(args.config) if args.reduced else get_config(args.config)
+    if not isinstance(cfg, MaceConfig):
+        ap.error(f"--config {args.config} is not a MACE configuration")
     cap = 256 if args.reduced else 3072
-    ds = SyntheticCFMDataset(2000 if args.reduced else 100_000, seed=0,
+    ds = SyntheticCFMDataset(2000 if args.reduced else 100_000, seed=0, r_cutoff=cfg.r_max,
                              max_atoms=cap // 4 if args.reduced else None)
-    tcfg = TrainerConfig(capacity=cap, edge_factor=32, max_graphs=max(16, cap // 8),
+    tcfg = TrainerConfig(capacity=cap, edge_factor=get_edge_factor(args.config),
+                         max_graphs=max(16, cap // 8),
                          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                          compress_grads=args.compress_grads, impl=args.impl,
                          interaction_impl=args.interaction_impl, elastic=args.elastic,

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.configs.mace_cfm import CONFIG
+from repro_torch.configs.mace_mp0_large import CONFIG as MP0_LARGE
 from repro_torch.core.channelwise_tp import TPSpec
 from repro_torch.core.irreps import lspec, sh_spec
 from repro_torch.core.symmetric_contraction import SymConSpec
@@ -39,19 +40,25 @@ def _randn(rng, dev, *shape):
 
 
 SYMCON_CASES = {
-    # name: (in irreps, nu_max, N, k); N * k = 960 is not a multiple of the
-    # kernels' block of 128 threads
-    "nu1": ((0, 1, 2, 3), 1, 40, 24),
-    "nu2": ((0, 1, 2, 3), 2, 40, 24),
-    "nu3_in012": ((0, 1, 2), 3, 40, 24),
-    "paper_n256_k128": ((0, 1, 2, 3), 2, 256, 128),
+    # name: (in irreps, out irreps, nu_max, N, k); N * k = 960 is not a
+    # multiple of the kernels' block of 128 threads; the MACE-MP-0 specs
+    # (correlation 3, large's l = 2 outputs) are cut into several cases
+    "nu1": ((0, 1, 2, 3), (0, 1), 1, 40, 24),
+    "nu2": ((0, 1, 2, 3), (0, 1), 2, 40, 24),
+    "nu3_in012": ((0, 1, 2), (0, 1), 3, 40, 24),
+    "paper_n256_k128": ((0, 1, 2, 3), (0, 1), 2, 256, 128),
+    "mp0_medium_n1000_k128": ((0, 1, 2, 3), (0, 1), 3, 1000, 128),
+    "mp0_large_n1000_k128": ((0, 1, 2, 3), (0, 1, 2), 3, 1000, 128),
 }
+# the cases the bf16 and fp8 builds are checked at: the MACE-MP-0 specs
+# train at fp32
+VARIANT_SYMCON_CASES = sorted(n for n in SYMCON_CASES if not n.startswith("mp0"))
 
 
 def _symcon_operands(dev, name):
-    in_ls, nu, N, k = SYMCON_CASES[name]
+    in_ls, out_ls, nu, N, k = SYMCON_CASES[name]
     rng = np.random.default_rng(sum(map(ord, name)))
-    spec = SymConSpec(lspec(*in_ls), lspec(0, 1), nu)
+    spec = SymConSpec(lspec(*in_ls), lspec(*out_ls), nu)
     A, W, G = (_randn(rng, dev, N, spec.in_spec.dim, k),
                _randn(rng, dev, N, sck.p_total_of(spec), k),
                _randn(rng, dev, N, spec.out_spec.dim, k))
@@ -63,6 +70,8 @@ def test_symcon_kernels_match_plain(dev, name):
     spec, A, W, G = _symcon_operands(dev, name)
     if name == "paper_n256_k128":
         assert spec == CONFIG.symcon_spec()
+    if name == "mp0_large_n1000_k128":
+        assert spec == MP0_LARGE.symcon_spec()
     before = sck.SYMCON_FWD.launches, sck.SYMCON_BWD.launches
     _close([sck.symcon_fwd(A, W, spec)], [sck.symcon_plain(A, W, spec)])
     _close(sck.symcon_bwd(A, W, G, spec), sck.symcon_bwd_plain(A, W, G, spec))
@@ -111,7 +120,9 @@ def _tp_case(name):
         blk = block_edges(receivers.astype(np.int32), mask, n_atoms, block_n=8, block_e=16)
         local, valid = blk.local_rcv.copy(), blk.valid.copy()
     else:
-        spec, k = CONFIG.tp_spec_at(1), 128
+        # MACE-MP-0 large's layer 1: l = 2 hidden features, 17 paths, d_h 9
+        config = MP0_LARGE if name == "mp0_large_layer1_k128" else CONFIG
+        spec, k = config.tp_spec_at(1), 128
         blk = _paper_blocking(rng)
         local, valid = blk.local_rcv.copy(), blk.valid.copy()
         epb = blk.epb
@@ -132,7 +143,9 @@ def _tp_case(name):
 
 
 TP_CASES = ["h0_k8", "h01_k40", "lmax4_out01234_k40", "paper_layer1_k128",
-            "paper_layer1_straddle", "paper_layer1_masked_tile", "paper_layer1_unsorted"]
+            "paper_layer1_straddle", "paper_layer1_masked_tile", "paper_layer1_unsorted",
+            "mp0_large_layer1_k128"]
+VARIANT_TP_CASES = [n for n in TP_CASES if not n.startswith("mp0")]
 
 
 def _tp_operands(dev, name):
@@ -193,17 +206,18 @@ def test_wrappers_refuse_cpu_cuda_mix(dev):
 # ---------------------------------------------------------------------------
 
 
-# name: (correlation, N, k): the benchmark's two specs (2: the paper's, 3:
-# MACE-MP-0 medium's) at its width, N = 1,000 no multiple of the bins'
-# 32-atom blocks; and N * k = 960, no multiple of the kernel's 128 threads
-SECOND_ORDER_CASES = {"nu2_k128": (2, 1000, 128), "nu3_k128": (3, 1000, 128),
-                      "nu3_k24": (3, 40, 24)}
+# name: (hidden irreps, correlation, N, k): the benchmark's three specs (2:
+# the paper's, 3: MACE-MP-0 medium's, and large's l = 2 hidden features, two
+# launches a call) at its width, N = 1,000 no multiple of the bins' 32-atom
+# blocks; and N * k = 960, no multiple of the kernel's 128 threads
+SECOND_ORDER_CASES = {"nu2_k128": ((0, 1), 2, 1000, 128), "nu3_k128": ((0, 1), 3, 1000, 128),
+                      "nu3_k24": ((0, 1), 3, 40, 24), "l2_nu3_k128": ((0, 1, 2), 3, 1000, 128)}
 
 
 def _second_order_operands(dev, name):
     """(spec, [A, W, G, U, V]) of a ``SECOND_ORDER_CASES`` case."""
-    nu, N, k = SECOND_ORDER_CASES[name]
-    spec = SymConSpec(lspec(0, 1, 2, 3), lspec(0, 1), nu)
+    hidden_ls, nu, N, k = SECOND_ORDER_CASES[name]
+    spec = SymConSpec(lspec(0, 1, 2, 3), lspec(*hidden_ls), nu)
     rng = np.random.default_rng(sum(map(ord, name)))
     d_in, P, d_out = spec.in_spec.dim, sck.p_total_of(spec), spec.out_spec.dim
     return spec, [_randn(rng, dev, N, d, k) for d in (d_in, P, d_out, d_in, P)]
@@ -214,14 +228,17 @@ def test_symcon_dbl_matches_plain_and_counts_one_launch(dev, name):
     spec, ops = _second_order_operands(dev, name)
     if name == "nu2_k128":
         assert spec == CONFIG.symcon_spec()
+    if name == "l2_nu3_k128":
+        assert spec == MP0_LARGE.symcon_spec() and len(sck.second_order_parts(spec)) == 2
     before = sck.SYMCON_DBL.launches
     got = sck.symcon_dbl(*ops, spec)
     torch.cuda.synchronize()
-    assert sck.SYMCON_DBL.launches == before + 1
+    # one launch a part of the output rows
+    assert sck.SYMCON_DBL.launches == before + len(sck.second_order_parts(spec))
     _close(got, sck.symcon_dbl_plain(*ops, spec))
 
 
-@pytest.mark.parametrize("name", ["nu2_k128", "nu3_k128"])
+@pytest.mark.parametrize("name", ["nu2_k128", "nu3_k128", "l2_nu3_k128"])
 def test_symcon_dbl_is_bitwise_deterministic(dev, name):
     spec, ops = _second_order_operands(dev, name)
     for a, b in zip(sck.symcon_dbl(*ops, spec), sck.symcon_dbl(*ops, spec)):
@@ -388,7 +405,7 @@ def test_rounding_on_card_matches_round_to(dev):
 
 
 @pytest.mark.parametrize("precision", VARIANTS)
-@pytest.mark.parametrize("name", sorted(SYMCON_CASES))
+@pytest.mark.parametrize("name", VARIANT_SYMCON_CASES)
 def test_symcon_variant_kernels_match_plain(dev, name, precision):
     """The bf16 / fp8 builds against the plain versions at that precision,
     and not the fp32 build's outputs."""
@@ -401,7 +418,7 @@ def test_symcon_variant_kernels_match_plain(dev, name, precision):
 
 
 @pytest.mark.parametrize("precision", VARIANTS)
-@pytest.mark.parametrize("name", TP_CASES)
+@pytest.mark.parametrize("name", VARIANT_TP_CASES)
 def test_tp_variant_kernels_match_plain(dev, name, precision):
     """The bf16 / fp8 builds against the plain versions at that precision
     (the forward's messages are formed unfused, in the plain version's

@@ -98,6 +98,24 @@ def test_trainer_under_the_profiler_records_each_step_with_its_children():
     assert len(tr.telemetry.times) == 3 and all(t > 0 for (t,) in tr.telemetry.times)
 
 
+def test_symmetric_contraction_spans_count_the_launched_rows_and_the_spec():
+    """``model.symcon`` (each layer's forward contraction, on the step's
+    thread) and ``model.symcon_twin`` (its second order) carry the atoms
+    launched, padded to the kernels' 32-atom tiles, the channels, the
+    largest l of B and of A, and the correlation."""
+    tr = _trainer()
+    with profile(activities=[ProfilerActivity.CPU]):
+        tr.train(n_epochs=1, max_steps=2)
+    step = tracing.spans("train.step")[-1]
+    rows = -(-tr.bin_shape.max_nodes // 32) * 32
+    want = {"rows": rows, "channels": 4, "hidden_lmax": 1, "a_lmax": 2, "correlation": 2}
+    for name in ("model.symcon", "model.symcon_twin"):
+        mine = [sp for sp in tracing.spans(name) if sp.root == step.id]
+        assert len(mine) == TCFG.n_interactions, name
+        assert all(sp.counts == want for sp in mine), [sp.counts for sp in mine]
+    assert all(sp.parent is not None for sp in tracing.spans("model.symcon"))
+
+
 def test_server_traces_the_requests_submitted_under_the_profiler():
     params = init_mace(SCFG, torch.Generator().manual_seed(0))
     ds = SyntheticCFMDataset(16, seed=3, max_atoms=24)

@@ -7,7 +7,7 @@ GPU, at every kernel impl and precision, and its LM family, and check them.
 Run from the repository root (the script finds ``src/repro_torch`` next to
 itself).  Phases, none of them caught, so any failure exits nonzero:
 
-1. build the CUDA kernels from ``src/repro_torch/csrc``: fifteen libraries, one
+1. build the CUDA kernels from ``src/repro_torch/csrc``: eighteen libraries, one
    ``nvcc`` each, all started together (the symmetric-contraction source and
    the interaction source for each layer's tensor-product spec, each at
    fp32, bf16 and fp8, with the generated header of that spec and
@@ -22,7 +22,10 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    the first-order source at fp32 for both MACE-MP-0 specs, held to it
    too, and the interaction source at fp32 for MACE-MP-0 large's layer 1,
    whose report is printed and not gated (its ``tp_gather_bwd`` spills 64
-   bytes), all checked in phase 14);
+   bytes), all checked in phase 14; and the interaction's second-order
+   source, ``channelwise_tp_second.cu``, fp32, for each layer's spec and
+   MACE-MP-0 large's layer 1, held to the same report, checked in phase
+   14);
 2. hold each of the four kernels at each precision against its plain
    PyTorch version on the card, at the shapes the 256-atom bucket of the
    paper's model gives it (both interaction layers; receivers with a hub
@@ -61,8 +64,9 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    seed=0, max_atoms=256)``, one rank, prefetch 1, random weights from the
    seed; 5 steps, each engine step timed by CUDA events with its atoms/s,
    loss, ``e_rmse``, ``f_rmse`` and kernel launches, which must be
-   2/4/2/4/2 for ``symcon_fwd``/``symcon_bwd``/``tp_scatter_fwd``/
-   ``tp_gather_bwd``/``symcon_dbl`` (the second order) per bin; every loss
+   2/4/2/4/2/2/2 for ``symcon_fwd``/``symcon_bwd``/``tp_scatter_fwd``/
+   ``tp_gather_bwd``/``symcon_dbl``/``tp_dbl_scatter``/``tp_dbl_gather``
+   (the last three the second order) per bin; every loss
    finite; the peak device memory;
 5. the variants, each run with the launch counts set to 0 just before it
    and read just after: serve the 48 molecules again at bf16 and at fp8
@@ -223,7 +227,12 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    device in a world of one (plain tensors, ``launch/dryrun.py::
    trace_single_device``), its ``peak_gb`` within ``DRYRUN_PEAK_RTOL`` of
    the bytes phase 12 (a) measured for the model, m, v and the steps;
-14. the MACE-MP-0 specs, fp32, at 3,072 atoms: the first-order symmetric
+14. the MACE-MP-0 specs, fp32, at 3,072 atoms: first a trainer of each
+   MACE-MP-0 configuration at 6 Å and 64 edge slots an atom (the
+   benchmark's training cells) gives its first bin and one profiled step
+   after a first, which must make a ``tp_dbl_scatter`` and the spec's
+   ``tp_dbl_gather`` launches a layer, with their device ms in the step;
+   then the first-order symmetric
    contraction at medium's and large's spec, and the interaction kernels at
    large's layer 1 (l = 2 hidden features, 17 paths) on the edge blocking
    of phase 4's first bin, each against its plain version, two launches
@@ -232,9 +241,17 @@ itself).  Phases, none of them caught, so any failure exits nonzero:
    second-order kernel at each spec of phase 1, against its plain version,
    two calls bit-identical, its launches counted (one a call; two for
    MACE-MP-0 large, whose call makes one per part), and timed beside its
-   bound and the plain version's time.  It runs last: run first, in phase 1, its plain
-   version's eager work left phase 6's CUDA-only profiler sessions
-   recording 14 or 17 of every 20 launches they timed;
+   bound and the plain version's time; and the interaction's second-order
+   kernels (``tp_dbl_scatter``, ``tp_dbl_gather``) at each layer of each
+   training configuration (the paper's on phase 4's first bin, MACE-MP-0
+   medium's and large's on their own), each timed first, then against its
+   plain version, two calls bit-identical, its launches counted (the
+   gather one a call, one per output at large's layer 1), beside its bound
+   (the fewest bytes at the bin's real counts) and its library's ptxas
+   report (0 stack and spill, gated in phase 1).  It runs last: run first, in phase 1, the
+   symmetric contraction's plain second order's eager work left phase 6's
+   CUDA-only profiler sessions recording 14 or 17 of every 20 launches
+   they timed;
 15. report: the card's name and power limit, one JSON line of kernel
    numbers (each kernel at each precision, the identity-blocked
    interaction kernels, and the second order's training counts and phase
@@ -274,6 +291,7 @@ import torch.distributed as dist  # noqa: E402
 from repro_torch.bridge import params_to, unflatten  # noqa: E402
 from repro_torch.configs.mace_cfm import CONFIG  # noqa: E402
 from repro_torch.configs.mace_mp0_large import CONFIG as MP0_LARGE  # noqa: E402
+from repro_torch.configs.mace_mp0_large import EDGE_FACTOR as MP0_EDGE_FACTOR  # noqa: E402
 from repro_torch.core.mace import init_mace, mace_energy_forces  # noqa: E402
 from repro_torch.core.symmetric_contraction import symcon_ref  # noqa: E402
 from repro_torch.data.blocking import (  # noqa: E402
@@ -331,13 +349,14 @@ TRAIN_GRAPHS = 2000         # examples/train_mace_cfm.py's --n-graphs default
 TRAIN_STEPS = 5
 # launches of each kernel per bin of a training step, a layer each: the
 # forward kernels once; the backward kernels inside the forces' autograd.grad
-# and again in the loss's backward; the symmetric contraction's second-order
-# kernel once, as the derivative of its backward in the loss's backward (the
-# interaction's backward takes its plain twin's), one launch a call at the
-# paper's spec (MACE-MP-0 large's call makes one per part, two).  Serving
-# launches the first four and never the second order.
+# and again in the loss's backward; the second-order kernels once, as the
+# derivatives of the backwards in the loss's backward: the symmetric
+# contraction's, and the interaction's scatter and gather, one launch a call
+# at the paper's specs (MACE-MP-0 large's symcon_dbl call makes one per part,
+# two, and its layer-1 gather one per output, three).  Serving launches the
+# first four and never the second order.
 PER_BIN = {"symcon_fwd": 2, "symcon_bwd": 4, "tp_scatter_fwd": 2, "tp_gather_bwd": 4,
-           "symcon_dbl": 2}
+           "symcon_dbl": 2, "tp_dbl_scatter": 2, "tp_dbl_gather": 2}
 # the card against the CPU over a short trajectory: the cross-implementation
 # tolerances of tests/test_engine.py:493 (the card's index_add_ sums in no
 # fixed order)
@@ -371,7 +390,8 @@ VARIANT_STEPS = 3           # training steps of each variant's run
 # not; its run is cut to this capacity, a third of TRAIN_ATOMS, and prints
 # its peak memory
 FUSED_BWD_CAPACITY = 1024
-FUSED_BWD_PER_BIN = dict(PER_BIN, tp_gather_bwd=0)  # no backward kernel
+# no backward kernel, so none of its second order
+FUSED_BWD_PER_BIN = dict(PER_BIN, tp_gather_bwd=0, tp_dbl_scatter=0, tp_dbl_gather=0)
 FUSED_BWD_LOSS_RTOL = 5e-4  # as TRAIN_LOSS_RTOL: one function, two backwards
 # the operand rounding of the bf16 and fp8 builds against round_to, bit for
 # bit: zeros, fp8's largest value 448 and its NaN threshold above 464, the
@@ -424,8 +444,10 @@ KERNELS = {
 # MACE-MP-0 large's l = 2 hidden features (two launches a call)
 SECOND_ORDER_SYMBOL = "symcon_dbl_kernel"
 # the MACE-MP-0 configurations of the benchmark's training cells (medium's
-# kernels are the paper's at correlation 3)
-MP0_CONFIGS = {"mace_mp0_medium": dataclasses.replace(CONFIG, correlation=3),
+# kernels are the paper's at correlation 3; both at 6 Å and MP0_EDGE_FACTOR
+# edge slots an atom)
+MP0_CONFIGS = {"mace_mp0_medium": dataclasses.replace(CONFIG, correlation=3, r_max=6.0,
+                                                      num_bessel=10, avg_num_neighbors=39.8),
                "mace_mp0_large": MP0_LARGE}
 SECOND_ORDER_SPECS = {"mace_cfm": CONFIG.symcon_spec(),
                       **{name: cfg.symcon_spec() for name, cfg in MP0_CONFIGS.items()}}
@@ -438,20 +460,33 @@ MP0_TP_SPECS = {(name, layer): cfg.tp_spec_at(layer)
                 for name, cfg in MP0_CONFIGS.items() for layer in range(cfg.n_interactions)
                 if cfg.tp_spec_at(layer) not in
                 {CONFIG.tp_spec_at(i) for i in range(CONFIG.n_interactions)}}
+# the interaction's second order, checked at every layer of every training
+# configuration on that configuration's own first bin: label ->
+# (configuration, tensor-product spec); built once a distinct spec
+TP_SECOND_ORDER_CASES = {f"{name} layer {layer}": (name, cfg.tp_spec_at(layer))
+                         for name, cfg in {"mace_cfm": CONFIG, **MP0_CONFIGS}.items()
+                         for layer in range(cfg.n_interactions)}
 # libraries whose ptxas report is printed and not gated: at MACE-MP-0 large's
 # layer 1 (17 paths, d_h 9) tp_gather_bwd spills 64 bytes a thread at its
 # 128-register bound, a kernel this configuration runs unchanged (PERF.md §7)
 REPORTED_ONLY = {f"tp {name} layer {layer} fp32" for name, layer in MP0_TP_SPECS}
+# the second-order kernels (fp32 at every precision), replacing no TPU
+# kernel: name -> (kernel, symbol)
+SECOND_ORDER_KERNELS = {"symcon_dbl": (sck.SYMCON_DBL, SECOND_ORDER_SYMBOL),
+                        "tp_dbl_scatter": (tpk.TP_DBL_SCATTER, "tp_dbl_scatter_kernel"),
+                        "tp_dbl_gather": (tpk.TP_DBL_GATHER, "tp_dbl_gather_kernel")}
 # the kernels whose launches are counted (the keys of PER_BIN): KERNELS and
-# the second order, whose library is fp32 at every precision
+# the second order
 COUNTED = {**{name: spec["kernel"] for name, spec in KERNELS.items()},
-           "symcon_dbl": sck.SYMCON_DBL}
+           **{name: kernel for name, (kernel, _) in SECOND_ORDER_KERNELS.items()}}
 
 
 def _ptxas_report(log: str):
     """``{kernel: "S bytes stack frame, ...; Used N registers, ..."}`` from
-    ptxas -v, by the kernel symbols of ``KERNELS`` and the second order's."""
-    symbols = [spec["symbol"] for spec in KERNELS.values()] + [SECOND_ORDER_SYMBOL]
+    ptxas -v, by the kernel symbols of ``KERNELS`` and the second order's
+    (the reports of a kernel's instances joined)."""
+    symbols = ([spec["symbol"] for spec in KERNELS.values()]
+               + [symbol for _, symbol in SECOND_ORDER_KERNELS.values()])
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
@@ -547,13 +582,15 @@ def _symcon_second_work(spec, N, k):
     return 4 * N * k * (3 * (d_in + P) + 2 * d_out), sck.second_order_ops(spec) * N * k
 
 
-def check_second_order(dev):
+def check_second_order(dev, bins):
     """Phase 14's second-order check at ``TRAIN_ATOMS`` atoms and the paper's
-    width, per spec of ``SECOND_ORDER_SPECS``: the kernel against
+    width.  Per spec of ``SECOND_ORDER_SPECS``: ``symcon_dbl`` against
     ``symcon_dbl_plain`` (``KERNEL_TOL``), two calls bit-identical, one
     launch counted per part of ``second_order_parts`` a call; then its CUDA-event ms per wrapper call, its
     profiler device ms per launch (L2 flushed before each), its bound and
-    the plain version's ms.  Prints one JSON line and returns its rows."""
+    the plain version's ms.  Then :func:`check_tp_second_order` on each
+    configuration's first bin of ``bins``.  Prints one JSON line and returns
+    its rows."""
     rows = []
     for name, spec in SECOND_ORDER_SPECS.items():
         rng = np.random.default_rng(SEED + 2)
@@ -594,8 +631,165 @@ def check_second_order(dev):
             for key, val in row.items()), flush=True)
         rows.append(row)
         del ops, got, flush
+    rows += check_tp_second_order(dev, bins)
     print(json.dumps({"second_order": rows}), flush=True)
     return rows
+
+
+def _tp_second_order_calls(dev, blk, n_edges, tp, seed):
+    """``{kernel: (launches a call, call, plain call)}`` of the interaction's
+    second-order kernels at ``tp`` over ``TRAIN_ATOMS`` atoms, ``n_edges``
+    edges and their blocking ``blk``, on operands and senders drawn from
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    N, k, T, E = TRAIN_ATOMS, CONFIG.channels, blk.n_atom_tiles, n_edges
+    d_sh, d_h, n_paths, d_out = tpk.spec_dims(tp)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    perm = torch.from_numpy(blk.perm.astype(np.int32)).to(dev)
+    senders = torch.from_numpy(rng.integers(0, N, E).astype(np.int32)).to(dev)
+    operands = (randn(E, d_sh), randn(E, d_sh), randn(N, d_h, k), randn(N, d_h, k),
+                randn(E, n_paths, k), randn(E, n_paths, k), perm,
+                senders[perm.long()].to(torch.int32).contiguous(),
+                torch.from_numpy(blk.local_rcv.astype(np.int32)).to(dev),
+                torch.from_numpy(blk.valid).to(dev))
+    G, base = randn(N, d_out, k), torch.from_numpy(blk.tile_base.astype(np.int32)).to(dev)
+    tiles = dict(n_tiles=T)
+    return {
+        "tp_dbl_scatter": (
+            1, lambda: tpk.tp_dbl_scatter(*operands, tp, **tiles, block_n=blk.block_n),
+            lambda: tpk.tp_dbl_scatter_plain(*operands, tp, **tiles, block_n=blk.block_n)),
+        "tp_dbl_gather": (
+            len(tpk.gather_parts(tp)),
+            lambda: tpk.tp_dbl_gather(G, *operands, base, tp, **tiles),
+            lambda: tpk.tp_dbl_gather_plain(G, *operands, base, tp, **tiles)),
+    }
+
+
+def check_tp_second_order(dev, bins):
+    """The interaction's second-order kernels at ``TRAIN_ATOMS`` atoms, per
+    case of ``TP_SECOND_ORDER_CASES``, on its configuration's first bin
+    (``bins``: configuration -> (edge blocking, edges), the slots, valid
+    slots and receivers the training path gives the kernels), fp32, on
+    random operands and senders: first every kernel's launches counted for
+    one call and its time (CUDA-event ms per wrapper call; profiler device
+    ms per call, L2 flushed before each), then, since eager work can leave
+    later profiler sessions short of launches, each against its plain
+    version (``KERNEL_TOL``) on the same operands, two calls bit-identical,
+    and the plain version's ms, beside its bound at the bin's real counts
+    (``tpk.second_order_work``, the fewest bytes) and its library's ptxas
+    report.  Returns one row per (case, kernel)."""
+    N, k = TRAIN_ATOMS, CONFIG.channels
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    rows = {}
+    for j, (label, (config, tp)) in enumerate(TP_SECOND_ORDER_CASES.items()):
+        blk, n_edges = bins[config]
+        E_p, n_valid = blk.perm.shape[0], int(blk.valid.sum())
+        rows_needed = np.unique((blk.tile_base[np.arange(E_p) // blk.epb]
+                                 + blk.local_rcv)[blk.valid]).size
+        work = tpk.second_order_work(tp, k=k, n_atoms=N, n_slots=E_p, n_valid=n_valid,
+                                     n_tiles=blk.n_atom_tiles, block_n=blk.block_n,
+                                     rows_needed=rows_needed)
+        report = _ptxas_report(cuda_lib.build_logs[
+            cuda_lib.library_path(*tpk.second_order_unit(tp)).stem])
+        for name, (launches, run, _) in _tp_second_order_calls(
+                dev, blk, n_edges, tp, SEED + 5 + j).items():
+            kernel, symbol = SECOND_ORDER_KERNELS[name]
+            before = kernel.launches
+            run()
+            torch.cuda.synchronize()
+            if kernel.launches != before + launches:
+                raise AssertionError(f"second order {name} {label}: "
+                                     f"{kernel.launches - before} launches counted for one "
+                                     f"call of {launches}")
+            device_ms, recorded = _device_ms(run, symbol, 20, before=flush.zero_,
+                                             per_call=launches)
+            bound, bound_by = _bound_ms(*work[name])
+            rows[(label, name)] = dict(
+                spec=f"tp {label}", kernel=name, N=N, k=k, slots=E_p, valid_slots=n_valid,
+                ms=_time_ms(run, reps=20), device_ms=device_ms, launches_per_call=launches,
+                device_launches_recorded=recorded, device_launches_made=20 * launches,
+                bound_ms=bound, bound_by=bound_by, share_of_bound=bound / device_ms,
+                ptxas=report.get(symbol), gflop=work[name][1] / 1e9,
+                mbytes=work[name][0] / 1e6)
+    del flush
+    for j, (label, (config, tp)) in enumerate(TP_SECOND_ORDER_CASES.items()):
+        blk, n_edges = bins[config]
+        for name, (_, run, plain) in _tp_second_order_calls(
+                dev, blk, n_edges, tp, SEED + 5 + j).items():
+            got, again = run(), run()
+            err, scale, ok = _compare(got, plain())
+            if not ok:
+                raise AssertionError(f"second order {name} {label} disagrees with its plain "
+                                     f"version: {err:.3e} of {scale:.3g}")
+            if not all(torch.equal(a, b) for a, b in zip(
+                    got if isinstance(got, tuple) else (got,),
+                    again if isinstance(again, tuple) else (again,))):
+                raise AssertionError(f"second order {name} {label} is not deterministic")
+            row = rows[(label, name)]
+            row.update(max_abs_err=err, scale=scale, plain_ms=_time_ms(plain, reps=2))
+            print(f"second order {name} {label}: " + " ".join(
+                f"{key}={val:.4g}" if isinstance(val, float) else f"{key}={val}"
+                for key, val in row.items()), flush=True)
+            del got, again
+    return list(rows.values())
+
+
+def mp0_training_bins():
+    """Per configuration of ``MP0_CONFIGS``, its trainer at ``TRAIN_ATOMS``
+    atoms and ``MP0_EDGE_FACTOR`` edge slots an atom (the benchmark's
+    training cells): its first bin, as ``bins`` of
+    :func:`check_tp_second_order` take it, and one profiled step after a
+    first (:func:`profile_second_order_step`).  Returns (bins, step rows)
+    and prints the rows as one JSON line."""
+    bins, steps = {}, []
+    for name, cfg in MP0_CONFIGS.items():
+        tr = _trainer(TRAIN_ATOMS, None, config=cfg, edge_factor=MP0_EDGE_FACTOR)
+        bins[name] = (first_bin_blocking(tr), tr.bin_shape.max_edges)
+        steps.append(profile_second_order_step(tr, name, cfg))
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"second_order_steps": steps}), flush=True)
+    return bins, steps
+
+
+def profile_second_order_step(tr, name, cfg):
+    """One training step of ``tr`` (configuration ``cfg``) after a first,
+    under ``torch.profiler``: the step's device time, and the interaction's
+    second-order kernels' device ms in it beside their launches recorded
+    and made, which must be a scatter and the spec's gather launches a layer
+    of the step's one bin."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tr.train(n_epochs=1, max_steps=1)
+    torch.cuda.synchronize()
+    before = _launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.train(n_epochs=1, max_steps=tr.global_step + 1)
+        torch.cuda.synchronize()
+    made = {k: v - before[k] for k, v in _launches().items()}
+    layers = range(cfg.n_interactions)
+    want = {"tp_dbl_scatter": cfg.n_interactions,
+            "tp_dbl_gather": sum(len(tpk.gather_parts(cfg.tp_spec_at(i))) for i in layers)}
+    events = _kernel_events(prof)
+    row = dict(config=name, N=TRAIN_ATOMS, edge_factor=tr.tcfg.edge_factor,
+               device_busy_ms=sum(map(_device_us, events)) / 1e3)
+    for kernel, n in want.items():
+        if made[kernel] != n:
+            raise AssertionError(f"{name}: a training step made {made[kernel]} launches "
+                                 f"of {kernel}, not {n}")
+        mine = [e for e in events if SECOND_ORDER_KERNELS[kernel][1] in e.key]
+        ms, seen = sum(map(_device_us, mine)) / 1e3, sum(e.count for e in mine)
+        if seen < MIN_RECORDED * n:
+            raise AssertionError(f"the profiler recorded {seen} of {n} launches of {kernel}")
+        row[kernel] = dict(device_ms=ms, launches_recorded=seen, launches_made=n)
+    print(f"second order step {name}: busy_ms={row['device_busy_ms']:.2f} " + " ".join(
+        f"{kernel}={row[kernel]['device_ms']:.4f}ms x{row[kernel]['launches_made']}"
+        for kernel in want), flush=True)
+    return row
 
 
 def check_mp0_kernels(dev, blk):
@@ -1013,7 +1207,7 @@ def serve(params, mols, config=None):
         raise AssertionError(f"serving at {config.precision} launched "
                              f"{_launches(config.precision)} of its {launches} launches "
                              "on its own libraries")
-    if launches["symcon_dbl"]:
+    if any(launches[name] for name in SECOND_ORDER_KERNELS):
         raise AssertionError(f"serving at {config.precision} launched the second order: "
                              f"{launches}")
     stats = server.stats()
@@ -1102,7 +1296,8 @@ def check_graphs(params, mols, buckets):
         if not ok:
             raise AssertionError(f"the graph of {bucket_key(bucket)} disagrees with the "
                                  "eager forward")
-        if (replay_launches != eager_launches or eager_launches["symcon_dbl"]
+        if (replay_launches != eager_launches
+                or any(eager_launches[name] for name in SECOND_ORDER_KERNELS)
                 or any(eager_launches[k] <= 0 for k in KERNELS)):
             raise AssertionError(f"a replay of {bucket_key(bucket)} launched "
                                  f"{replay_launches}, the eager call {eager_launches}")
@@ -1260,8 +1455,8 @@ def _launches(precision=None):
     if precision is None:
         return {name: kernel.launches for name, kernel in COUNTED.items()}
     return {name: sum(n for header, n in kernel.launches_by_header.items()
-                      if cuda_lib.precision_define(
-                          "fp32" if name == "symcon_dbl" else precision) in header)
+                      if name in SECOND_ORDER_KERNELS
+                      or cuda_lib.precision_define(precision) in header)
             for name, kernel in COUNTED.items()}
 
 
@@ -1270,17 +1465,19 @@ def _reset_launches():
         kernel.reset()
 
 
-def _trainer(capacity, device, params=None, ckpt_dir=None, config=None, **overrides):
+def _trainer(capacity, device, params=None, ckpt_dir=None, config=None,
+             edge_factor=EDGE_FACTOR, **overrides):
     """``examples/train_mace_cfm.py``'s trainer at the paper's width: the
     balanced sampler over ``SyntheticCFMDataset(2000, seed=0,
-    max_atoms=256)``, one rank, prefetch 1, ``max_graphs = capacity // 8``;
-    random weights from ``SEED`` unless ``params`` are given; ``overrides``
-    are ``TrainerConfig`` fields (the kernel selection, the engine and its
-    ranks, the tile geometry)."""
-    tcfg = TrainerConfig(capacity=capacity, edge_factor=EDGE_FACTOR,
+    max_atoms=256)`` at the configuration's cutoff, one rank, prefetch 1,
+    ``max_graphs = capacity // 8``; random weights from ``SEED`` unless
+    ``params`` are given; ``overrides`` are ``TrainerConfig`` fields (the
+    kernel selection, the engine and its ranks, the tile geometry)."""
+    tcfg = TrainerConfig(capacity=capacity, edge_factor=edge_factor,
                          max_graphs=max(16, capacity // 8), prefetch=1,
                          ckpt_dir=ckpt_dir, ckpt_every=0, **overrides)
-    dataset = SyntheticCFMDataset(TRAIN_GRAPHS, seed=SEED, max_atoms=max(CAPACITIES))
+    dataset = SyntheticCFMDataset(TRAIN_GRAPHS, seed=SEED, r_cutoff=(config or CONFIG).r_max,
+                                  max_atoms=max(CAPACITIES))
     return Trainer(config or CONFIG, tcfg, dataset, seed=SEED, params=params, device=device)
 
 
@@ -1415,7 +1612,8 @@ def check_paths_and_impls(dev, params, mols, bucket):
               f"ok={ok} launches={made}", flush=True)
         if not ok:
             raise AssertionError(f"the {what} path disagrees with the blocked cuda path")
-    if any(launches[k] <= 0 for k in KERNELS) or launches["symcon_dbl"]:
+    if (any(launches[k] <= 0 for k in KERNELS)
+            or any(launches[k] for k in SECOND_ORDER_KERNELS)):
         raise AssertionError(f"the unblocked path launched {launches}")
     if any(n for impl in ("fused", "ref") for n in runs[impl][2].values()):
         raise AssertionError("the fused or ref impl launched a kernel")
@@ -1506,7 +1704,7 @@ def profile_train_step(tr, step_ms):
         print(f"train profile top: {_device_us(e) / 1e3:9.3f} ms x{e.count:<5d} {e.key[:90]}")
     out = {}
     symbols = {**{name: spec["symbol"] for name, spec in KERNELS.items()},
-               "symcon_dbl": SECOND_ORDER_SYMBOL}
+               **{name: symbol for name, (_, symbol) in SECOND_ORDER_KERNELS.items()}}
     for name, symbol in symbols.items():
         mine = [e for e in events if symbol in e.key]
         ms, seen = sum(map(_device_us, mine)) / 1e3, sum(e.count for e in mine)
@@ -1998,9 +2196,9 @@ def _per_bin_for(cfg):
     if cfg.symcon_impl_name != "cuda":
         want.update(symcon_fwd=0, symcon_bwd=0, symcon_dbl=0)
     if cfg.interaction_impl_name != "cuda":
-        want.update(tp_scatter_fwd=0, tp_gather_bwd=0)
+        want.update(tp_scatter_fwd=0, tp_gather_bwd=0, tp_dbl_scatter=0, tp_dbl_gather=0)
     elif cfg.interaction_bwd_impl == "fused":
-        want.update(tp_gather_bwd=0)
+        want.update(tp_gather_bwd=0, tp_dbl_scatter=0, tp_dbl_gather=0)
     return want
 
 
@@ -3240,7 +3438,8 @@ def lm_multi_device_phase(card, lm_train):
     check = traced_peak_against_card(card, lm_train["peak_gb"] - lm_train["held_gb"])
     counts = [_launches()] + rank_launches + [rec["kernel_launches"] for rec in recs.values()]
     if any(set(c) != set(COUNTED) for c in counts):
-        raise AssertionError(f"a process of phase 13 did not report the five kernels: {counts}")
+        raise AssertionError(f"a process of phase 13 did not report every counted kernel: "
+                             f"{counts}")
     launches = {k: sum(c[k] for c in counts) for k in COUNTED}
     if any(launches.values()):
         raise AssertionError(f"the multi-device LM path launched MACE kernels: {counts}")
@@ -3252,12 +3451,13 @@ def lm_multi_device_phase(card, lm_train):
 
 
 def kernel_units():
-    """(label, (source, header)) of the fifteen kernel libraries: the
+    """(label, (source, header)) of the eighteen kernel libraries: the
     symmetric contraction's spec and both layers' tensor-product specs, each
     at every precision, the second order (fp32) of each spec of
     ``SECOND_ORDER_SPECS``, the first order (fp32) of each of
-    ``FIRST_ORDER_MP0_SPECS`` and the interaction (fp32) of each of
-    ``MP0_TP_SPECS``."""
+    ``FIRST_ORDER_MP0_SPECS``, the interaction (fp32) of each of
+    ``MP0_TP_SPECS`` and the interaction's second order of each distinct
+    spec of ``TP_SECOND_ORDER_CASES``."""
     units = []
     for p in PRECISIONS:
         units += [(f"symcon {p}", u) for u in sck.build_units([CONFIG.symcon_spec()], [p])]
@@ -3271,6 +3471,10 @@ def kernel_units():
     units += [(f"tp {name} layer {layer} fp32", u)
               for (name, layer), tp in MP0_TP_SPECS.items()
               for u in tpk.build_units([tp], ["fp32"])]
+    second = {}
+    for label, (_, tp) in TP_SECOND_ORDER_CASES.items():
+        second.setdefault(tp, label)
+    units += [(f"tp second {label}", tpk.second_order_unit(tp)) for tp, label in second.items()]
     return units
 
 
@@ -3288,10 +3492,11 @@ def kernel_entries(results, training, identity, launches, train, train_profile,
     launches).  The fp32 entries also carry the autotune phase's launches
     (its "auto" training run and its "auto" server) and the elastic phase's
     (each part's run: the in-process rescale, the three restart runs, the
-    relaunched rank of each supervised drill).  Last the second order
-    (``symcon_dbl``, fp32 at every precision): the same counts of the
-    training runs (its bf16 run's too), none in serving, and phase 14's
-    rows (``second_order``)."""
+    relaunched rank of each supervised drill).  Last the second-order
+    kernels (``symcon_dbl``, ``tp_dbl_scatter``, ``tp_dbl_gather``, fp32 at
+    every precision): the same counts of the training runs (their bf16
+    run's too), none in serving, and each one's rows of phase 14
+    (``second_order``)."""
 
     def trained(name):  # a kernel's launches and device time in training
         return dict(
@@ -3345,11 +3550,15 @@ def kernel_entries(results, training, identity, launches, train, train_profile,
                 per_layer_device_ms=[r["device_ms"] for r in rows],
                 per_layer_share_of_bound=[r["bound"] / r["device_ms"] for r in rows],
                 device_launches_recorded=sum(r["recorded"] for r in rows)))
-    entries.append(dict(
-        name="symcon_dbl", precision="fp32", route="cuda",
-        source="src/repro_torch/csrc/symmetric_contraction_second.cu", replaces=None,
-        launches=launches["symcon_dbl"], bf16_training_launches=bf16_training_launches[
-            "symcon_dbl"], second_order=second_order, **trained("symcon_dbl")))
+    sources = {"symcon_dbl": "src/repro_torch/csrc/symmetric_contraction_second.cu",
+               "tp_dbl_scatter": "src/repro_torch/csrc/channelwise_tp_second.cu",
+               "tp_dbl_gather": "src/repro_torch/csrc/channelwise_tp_second.cu"}
+    for name in SECOND_ORDER_KERNELS:
+        entries.append(dict(
+            name=name, precision="fp32", route="cuda", source=sources[name], replaces=None,
+            launches=launches[name], bf16_training_launches=bf16_training_launches[name],
+            second_order=[r for r in second_order if r.get("kernel", "symcon_dbl") == name],
+            **trained(name)))
     return entries
 
 
@@ -3426,8 +3635,10 @@ def main() -> int:
     elastic_launches = elastic_phase(card)
     lm = lm_phase(card)
     lm_multi_device_phase(card, lm["train"])
+    mp0_bins, _ = mp0_training_bins()
     check_mp0_kernels(dev, blk)
-    second_order = check_second_order(dev)
+    second_order = check_second_order(
+        dev, {"mace_cfm": (blk, tr.bin_shape.max_edges), **mp0_bins})
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f}s")
     print(card)

@@ -41,19 +41,21 @@ them and it differentiates to any order.
 
 Every op is a ``torch.autograd.Function`` that saves only its own inputs
 (with ``receivers`` and ``edge_mask``, which the blocking arrays encode but
-the second-order rule reads).  Each backward kernel is itself an
+the unblocked second-order rule reads).  Each backward kernel is itself an
 ``autograd.Function`` (:class:`_InteractionBwd`, the JAX package's
 ``_blocked_bwd_op`` / ``_unblocked_bwd_op``; :class:`_TPBwd`, its
-``_tp_bwd_op``) whose derivative is the double VJP of the plain twin
-(``interaction_fused`` over the unblocked arrays, ``tp_fused``), taken in
-chunks of edges (exact: both are sums over edges) so that their ``[E, k,
-nnz]`` intermediates stay a fixed size.  First order runs the hand-written
-kernels; only the derivative *of* the backward goes through the twin, and a
-third order raises.
+``_tp_bwd_op``).  Over the blocking, the derivative of the backward is the
+second-order kernels ``tp_dbl_scatter`` and ``tp_dbl_gather``
+(:func:`_blocked_second_order`; their plain versions on the CPU), which the
+JAX package leaves to XLA's autodiff.  Without the blocking, and for the
+TP-only op, it is the double VJP of the plain twin (``interaction_fused``
+over the unblocked arrays, ``tp_fused``), taken in chunks of edges (exact:
+both are sums over edges) so that their ``[E, k, nnz]`` intermediates stay
+a fixed size.  A third order raises.
 
 Precision: ``tp_cuda`` takes ``precision``; the interaction ops read
 ``InteractionSpec.precision``.  Both route it to the kernels' operand
-rounding (``kernels/precision.py``); the second-order twins stay fp32.
+rounding (``kernels/precision.py``); the second order stays fp32.
 """
 from __future__ import annotations
 
@@ -72,12 +74,12 @@ from repro_torch.core.interaction import (
 from repro_torch.kernels import refuse_third_order
 from repro_torch.kernels.precision import check_precision
 
-from .kernel import tp_gather_bwd, tp_scatter
+from .kernel import tp_dbl_gather, tp_dbl_scatter, tp_gather_bwd, tp_scatter
 
-# edges per chunk of the second-order rules: their autodiff keeps about a
-# dozen [chunk, k, nnz] fp32 tensors live, 4.3 GB at k = 128 and nnz = 86
-# (the paper's layer 1), where the 147,456 edges of a 3,072-atom bin at once
-# would need 78 GB
+# edges per chunk of the autograd twins (the unblocked and TP-only second
+# orders): their autodiff keeps about a dozen [chunk, k, nnz] fp32 tensors
+# live, 4.3 GB at k = 128 and nnz = 86 (the paper's layer 1), where the
+# 147,456 edges of a 3,072-atom bin at once would need 78 GB
 TWIN_CHUNK_EDGES = 8192
 # edge slots per tile of the identity blocking (the JAX tp_pallas block_e)
 IDENTITY_TILE = 128
@@ -255,6 +257,31 @@ def _unblocked_backward(spec, g, Y, h_node, R, senders, receivers, edge_mask):
     return dY, dh, dR
 
 
+def _blocked_second_order(spec, g, Y, h_node, R, senders, perm, valid, local, base,
+                          ddY, ddh, ddR):
+    """d/d(g, Y, h_node, R) of ``<(ddY, ddh, ddR), _blocked_backward at (g, Y,
+    h_node, R)>`` by the second-order kernels, which read every operand row
+    through ``perm`` and the slots' senders: the receiver scatter of the
+    product rule's messages, folded onto atom rows as the forward folds
+    (``dg``), and the per-slot gather of the cotangent rows (``dY`` and
+    ``dR`` on the slots' edges, ``dh`` per slot, then summed over senders)."""
+    n_atoms, bn, avg = h_node.shape[0], spec.block_n, spec.avg_num_neighbors
+    tiles = dict(n_tiles=base.shape[0])
+    perm32 = perm.to(torch.int32).contiguous()
+    send = senders[perm.long()].to(torch.int32).contiguous()
+    h_t, ch_t = (t.transpose(1, 2).contiguous() for t in (h_node, ddh))   # [N, d_h, k]
+    Y, ddY, R, ddR = (t.contiguous() for t in (Y, ddY, R, ddR))
+    operands = (Y, ddY, h_t, ch_t, R, ddR, perm32, send, local, valid)
+    dG_t = tp_dbl_scatter(*operands, spec.tp, **tiles, block_n=bn)
+    dg = dG_t.new_zeros((n_atoms + bn,) + dG_t.shape[1:])
+    dg.index_add_(0, _tile_rows(base, bn), dG_t)
+    G = (g.transpose(1, 2) / avg).contiguous()                # [N, d_out, k]
+    dY, dR, dh_b = tp_dbl_gather(G, *operands, base.to(torch.int32).contiguous(),
+                                 spec.tp, **tiles)
+    dh = dh_b.new_zeros((n_atoms,) + dh_b.shape[1:]).index_add_(0, send.long(), dh_b)
+    return dg[:n_atoms].transpose(1, 2) / avg, dY, dh.transpose(1, 2), dR
+
+
 def _twin_second_order(spec, g, Y, h_node, R, senders, receivers, edge_mask,
                        ddY, ddh, ddR):
     """d/d(g, Y, h_node, R) of ``<(ddY, ddh, ddR), VJP of interaction_fused
@@ -304,14 +331,16 @@ class _InteractionBwd(torch.autograd.Function):
     """``(g [N, k, d_out], Y, h_node, R, senders, receivers, edge_mask,
     perm, valid, local, base) -> (dY, dh_node, dR)``: the backward kernel
     between the adjoints of the forward's plain-torch steps, over the edge
-    blocking when ``perm`` is given, else unblocked; its own derivative is
-    :func:`_twin_second_order`."""
+    blocking when ``perm`` is given, else unblocked.  Its own derivative is
+    :func:`_blocked_second_order` (the second-order kernels) over the
+    blocking, :func:`_twin_second_order` without it."""
 
     @staticmethod
     def forward(ctx, g, Y, h_node, R, senders, receivers, edge_mask, perm, valid,
                 local, base, spec):
         ctx.spec = spec
-        ctx.save_for_backward(g, Y, h_node, R, senders, receivers, edge_mask)
+        ctx.save_for_backward(g, Y, h_node, R, senders, receivers, edge_mask, perm,
+                              valid, local, base)
         if perm is None:
             return _unblocked_backward(spec, g, Y, h_node, R, senders, receivers,
                                        edge_mask)
@@ -320,8 +349,17 @@ class _InteractionBwd(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ddY, ddh, ddR):
         refuse_third_order("interaction backward")
-        with tracing.span("model.tp_twin", tracing.handed_off()):
-            grads = _twin_second_order(ctx.spec, *ctx.saved_tensors, ddY, ddh, ddR)
+        g, Y, h_node, R, senders, receivers, edge_mask, perm, valid, local, base = (
+            ctx.saved_tensors)
+        with tracing.span("model.tp_twin", tracing.handed_off()) as sp:
+            if perm is None:
+                grads = _twin_second_order(ctx.spec, g, Y, h_node, R, senders, receivers,
+                                           edge_mask, ddY, ddh, ddR)
+            else:
+                if sp is not None:
+                    sp.count("slots", perm.shape[0])
+                grads = _blocked_second_order(ctx.spec, g, Y, h_node, R, senders, perm,
+                                              valid, local, base, ddY, ddh, ddR)
         return (*grads, None, None, None, None, None, None, None, None)
 
 

@@ -201,7 +201,9 @@ def kernel_launches():
     return {"symcon_fwd": sck.SYMCON_FWD.launches, "symcon_bwd": sck.SYMCON_BWD.launches,
             "tp_scatter_fwd": tpk.TP_SCATTER_FWD.launches,
             "tp_gather_bwd": tpk.TP_GATHER_BWD.launches,
-            "symcon_dbl": sck.SYMCON_DBL.launches}
+            "symcon_dbl": sck.SYMCON_DBL.launches,
+            "tp_dbl_scatter": tpk.TP_DBL_SCATTER.launches,
+            "tp_dbl_gather": tpk.TP_DBL_GATHER.launches}
 
 
 def _supervise(args, argv) -> int:

@@ -6,6 +6,8 @@ Imports no JAX, so it runs where only PyTorch is installed.  Tolerance:
 2e-5 of the output's largest magnitude, the reference's kernel-vs-oracle
 bound; the kernels sum in another order than the plain versions.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -344,29 +346,30 @@ def test_interaction_grad_of_grad_matches_the_cpu(dev, layer):
     ops.update({"c" + n: torch.randn_like(ops[n]) for n in "YhR"})
     blocking = {k: torch.from_numpy(np.asarray(v))
                 for k, v in blocking_from_batch(blocking_to_batch(blk)).items()}
-    before = tpk.TP_SCATTER_FWD.launches, tpk.TP_GATHER_BWD.launches
+    kernels = (tpk.TP_SCATTER_FWD, tpk.TP_GATHER_BWD, tpk.TP_DBL_SCATTER, tpk.TP_DBL_GATHER)
+    before = [kern.launches for kern in kernels]
     got = _second_order_interaction(dev, spec, ops, blocking)
     torch.cuda.synchronize()
-    assert (tpk.TP_SCATTER_FWD.launches, tpk.TP_GATHER_BWD.launches) == (
-        before[0] + 1, before[1] + 1)
+    # each first-order kernel once, and the backward's derivative: the
+    # second-order scatter and gather once each
+    assert [kern.launches - b for kern, b in zip(kernels, before)] == [1, 1, 1, 1]
     _grad_close(got, _second_order_interaction(cpu, spec, ops, blocking))
 
 
 def _kernel_launches():
     return np.array([sck.SYMCON_FWD.launches, sck.SYMCON_BWD.launches,
                      tpk.TP_SCATTER_FWD.launches, tpk.TP_GATHER_BWD.launches,
-                     sck.SYMCON_DBL.launches])
+                     sck.SYMCON_DBL.launches, tpk.TP_DBL_SCATTER.launches,
+                     tpk.TP_DBL_GATHER.launches])
 
 
 @pytest.mark.parametrize("n_ranks", [1, 2])
 def test_training_step_launches_each_kernel_per_bin(dev, n_ranks):
     """Per bin of a training step: each forward kernel once, each backward
     kernel twice (inside the forces' ``autograd.grad`` and in the loss's
-    backward), the symmetric contraction's second-order kernel once (in
-    the loss's backward); the interaction's second order goes through its
-    plain twin."""
-    import dataclasses
-
+    backward), each second-order kernel once (in the loss's backward: the
+    symmetric contraction's, and the interaction's scatter and gather, one
+    launch each at the paper's specs)."""
     from repro_torch.data.molecules import SyntheticCFMDataset
     from repro_torch.train.train_loop import Trainer, TrainerConfig
 
@@ -378,7 +381,122 @@ def test_training_step_launches_each_kernel_per_bin(dev, n_ranks):
     torch.cuda.synchronize()
     assert np.isfinite(hist[0]["loss"])
     assert (_kernel_launches() - before).tolist() == [2 * n_ranks, 4 * n_ranks,
-                                                      2 * n_ranks, 4 * n_ranks, 2 * n_ranks]
+                                                      2 * n_ranks, 4 * n_ranks, 2 * n_ranks,
+                                                      2 * n_ranks, 2 * n_ranks]
+
+
+# MACE-MP-0 medium as the benchmark runs it: the paper's widths at
+# correlation 3 and 6 Å (its interaction specs are the paper's)
+MP0_MEDIUM = dataclasses.replace(CONFIG, correlation=3, r_max=6.0, num_bessel=10,
+                                 avg_num_neighbors=39.8)
+# name: (config, layer): every layer spec of the benchmark's training cells:
+# layer 0 (scalar features, every config's), the paper's layer 1 (medium's
+# too) and MACE-MP-0 large's (17 paths, d_h 9: one gather launch per output)
+TP_DBL_CASES = {"paper_layer0": (CONFIG, 0), "paper_layer1": (CONFIG, 1),
+                "mp0_medium_layer1": (MP0_MEDIUM, 1), "mp0_large_layer1": (MP0_LARGE, 1)}
+
+
+def _tp_dbl_operands(dev, name):
+    """(spec, operands, tiles, edges that no valid slot holds): 64 atoms of
+    degree 8-40 and a hub of 300 (three tiles sharing a base), 5% of the
+    edges masked, 200 padding edges and a padding tile."""
+    config, layer = TP_DBL_CASES[name]
+    spec, k = config.tp_spec_at(layer), config.channels
+    rng = np.random.default_rng(sum(map(ord, name)))
+    n_atoms = 64
+    deg = rng.integers(8, 40, n_atoms)
+    deg[5] = 300
+    receivers = np.repeat(np.arange(n_atoms), deg).astype(np.int32)
+    rng.shuffle(receivers)
+    receivers = np.concatenate([receivers, np.zeros(200, np.int32)])
+    E = receivers.size
+    mask = np.concatenate([rng.random(E - 200) < 0.95, np.zeros(200, bool)])
+    blk = block_edges(receivers, mask, n_atoms, block_n=32, block_e=128,
+                      n_tiles=static_n_tiles(E, n_atoms, 32, 128) + 1)
+    assert (blk.tile_base == 0).sum() >= 3 and not blk.valid[-blk.epb:].any()
+    d_sh, d_h, n_paths, d_out = tpk.spec_dims(spec)
+    perm = torch.from_numpy(blk.perm.astype(np.int32)).to(dev)
+    senders = torch.from_numpy(rng.integers(0, n_atoms, E).astype(np.int32)).to(dev)
+    ops = dict(
+        Y=_randn(rng, dev, E, d_sh), cY=_randn(rng, dev, E, d_sh),
+        h=_randn(rng, dev, n_atoms, d_h, k), ch=_randn(rng, dev, n_atoms, d_h, k),
+        R=_randn(rng, dev, E, n_paths, k), cR=_randn(rng, dev, E, n_paths, k),
+        perm=perm, send=senders[perm.long()].to(torch.int32).contiguous(),
+        local=torch.from_numpy(blk.local_rcv.astype(np.int32)).to(dev),
+        valid=torch.from_numpy(blk.valid).to(dev),
+        base=torch.from_numpy(blk.tile_base.astype(np.int32)).to(dev),
+        G=_randn(rng, dev, n_atoms, d_out, k))
+    held = np.zeros(E, bool)
+    held[blk.perm[blk.valid]] = True
+    return spec, ops, dict(n_tiles=blk.n_atom_tiles), torch.from_numpy(~held).to(dev)
+
+
+def _tp_dbl_calls(spec, o, tiles):
+    operands = [o[n] for n in ("Y", "cY", "h", "ch", "R", "cR", "perm", "send", "local",
+                               "valid")]
+    return (lambda: tpk.tp_dbl_scatter(*operands, spec, **tiles, block_n=32),
+            lambda: tpk.tp_dbl_scatter_plain(*operands, spec, **tiles, block_n=32),
+            lambda: tpk.tp_dbl_gather(o["G"], *operands, o["base"], spec, **tiles),
+            lambda: tpk.tp_dbl_gather_plain(o["G"], *operands, o["base"], spec, **tiles))
+
+
+@pytest.mark.parametrize("name", sorted(TP_DBL_CASES))
+def test_tp_dbl_kernels_match_plain(dev, name):
+    """The interaction's second-order kernels against their plain versions
+    at each layer spec of the benchmark's configs: masked slots and edges
+    no valid slot holds get exact zeros, reruns are bit-identical (no
+    atomics), and each call counts its launches."""
+    spec, o, tiles, unheld = _tp_dbl_operands(dev, name)
+    if name == "mp0_medium_layer1":
+        assert spec == CONFIG.tp_spec_at(1)
+    scatter, scatter_plain, gather, gather_plain = _tp_dbl_calls(spec, o, tiles)
+    parts = len(tpk.gather_parts(spec))
+    assert parts == (3 if name == "mp0_large_layer1" else 1)
+    before = tpk.TP_DBL_SCATTER.launches, tpk.TP_DBL_GATHER.launches
+    dG, (dY, dR, dh) = scatter(), gather()
+    torch.cuda.synchronize()
+    assert (tpk.TP_DBL_SCATTER.launches, tpk.TP_DBL_GATHER.launches) == (
+        before[0] + 1, before[1] + parts)
+    _close([dG], [scatter_plain()])
+    _close([dY, dR, dh], gather_plain())
+    assert float(dh[~o["valid"]].abs().max()) == 0.0
+    assert float(dY[unheld].abs().max()) == float(dR[unheld].abs().max()) == 0.0
+    assert torch.equal(dG, scatter())
+    for a, b in zip((dY, dR, dh), gather()):
+        assert torch.equal(a, b)
+
+
+TRAIN_CONFIGS = {"mace_cfm": (CONFIG, 48), "mace_mp0_medium": (MP0_MEDIUM, 64),
+                 "mace_mp0_large": (MP0_LARGE, 64)}
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_CONFIGS))
+def test_training_step_at_3072_atoms_runs_the_second_order_kernels(dev, name,
+                                                                   monkeypatch):
+    """A training step of each benchmark configuration on a bin of 3,072
+    atoms: every blocked interaction backward's derivative goes through the
+    second-order kernels (a scatter and the spec's gather launches per
+    layer), never through the autograd twin."""
+    from repro_torch.data.molecules import SyntheticCFMDataset
+    from repro_torch.kernels.channelwise_tp import ops as tp_ops
+    from repro_torch.train.train_loop import Trainer, TrainerConfig
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the blocked path took the autograd twin")
+
+    monkeypatch.setattr(tp_ops, "_twin_second_order", refuse)
+    cfg, edge_factor = TRAIN_CONFIGS[name]
+    tcfg = TrainerConfig(capacity=3072, edge_factor=edge_factor, max_graphs=384)
+    data = SyntheticCFMDataset(2000, seed=0, r_cutoff=cfg.r_max, max_atoms=256)
+    tr = Trainer(cfg, tcfg, data, device=dev)
+    before = tpk.TP_DBL_SCATTER.launches, tpk.TP_DBL_GATHER.launches
+    hist = tr.train(n_epochs=1, max_steps=1)["history"]
+    torch.cuda.synchronize()
+    assert np.isfinite(hist[0]["loss"])
+    gathers = sum(len(tpk.gather_parts(cfg.tp_spec_at(layer)))
+                  for layer in range(cfg.n_interactions))
+    assert (tpk.TP_DBL_SCATTER.launches - before[0],
+            tpk.TP_DBL_GATHER.launches - before[1]) == (cfg.n_interactions, gathers)
 
 
 # ---------------------------------------------------------------------------
@@ -466,8 +584,6 @@ def test_tp_cuda_identity_launch_matches_the_cpu(dev, E):
 def test_interaction_paths_grad_of_grad_match_the_cpu(dev, blocked, bwd_impl):
     """The unblocked path and the fused backward at second order, on the
     card against the CPU, at the paper's layer-1 widths."""
-    import dataclasses
-
     from repro_torch.data.blocking import blocking_from_batch, blocking_to_batch
     from repro_torch.kernels.channelwise_tp.ops import interaction_cuda_op
 
@@ -499,18 +615,20 @@ def test_interaction_paths_grad_of_grad_match_the_cpu(dev, blocked, bwd_impl):
         scalar = sum((d * ops["c" + n].to(device)).sum() for d, n in zip(first, "YhR"))
         return torch.autograd.grad(scalar, ins)
 
-    before = tpk.TP_GATHER_BWD.launches
+    before = tpk.TP_GATHER_BWD.launches, tpk.TP_DBL_SCATTER.launches
     got = second_order(dev)
     torch.cuda.synchronize()
-    assert tpk.TP_GATHER_BWD.launches - before == (1 if bwd_impl == "cuda" else 0)
+    assert tpk.TP_GATHER_BWD.launches - before[0] == (1 if bwd_impl == "cuda" else 0)
+    # only the blocked backward kernel's derivative is the second-order
+    # kernels; the unblocked one's and the fused backward's are autograd's
+    assert tpk.TP_DBL_SCATTER.launches - before[1] == (
+        1 if blocked and bwd_impl == "cuda" else 0)
     _grad_close(got, second_order(cpu))
 
 
 def test_bf16_training_step_launches_on_the_bf16_libraries(dev):
     """A bf16 training step launches each kernel as an fp32 one does, 2/4/2/4
     per bin, every launch from a bf16 build."""
-    import dataclasses
-
     from repro_torch.data.molecules import SyntheticCFMDataset
     from repro_torch.kernels.cuda_lib import precision_define
     from repro_torch.train.train_loop import Trainer, TrainerConfig
@@ -539,8 +657,6 @@ SERVE_CAPACITIES = (64, 128)
 def _serve_setup(impl="cuda"):
     """The paper's specs at 16 channels, random weights from a seed, the
     bucket ladder and a skewed set of molecules."""
-    import dataclasses
-
     from repro_torch.core.mace import init_mace
     from repro_torch.data.molecules import SyntheticCFMDataset
     from repro_torch.serve import bucket_ladder
@@ -589,7 +705,8 @@ def test_replay_matches_eager_per_bucket(dev, impl):
             replay = _kernel_launches() - before - eager
             _close(got, want)
             assert replay.tolist() == eager.tolist()
-            assert eager.tolist() == ([2, 2, 2, 2, 0] if impl == "cuda" else [0] * 5)
+            # no second order in serving
+            assert eager.tolist() == ([2, 2, 2, 2, 0, 0, 0] if impl == "cuda" else [0] * 7)
         assert engine.compile_census() == {bucket_key(b): 1 for b in ladder}
     finally:
         engine.close()

@@ -38,7 +38,8 @@ from repro_torch.roofline.collectives import count_collectives, count_flops, out
 
 REPO = Path(__file__).resolve().parents[1]
 B, S, S_DECODE = 8, 64, 128
-KERNEL_NAMES = ("symcon_fwd", "symcon_bwd", "tp_scatter_fwd", "tp_gather_bwd", "symcon_dbl")
+KERNEL_NAMES = ("symcon_fwd", "symcon_bwd", "tp_scatter_fwd", "tp_gather_bwd", "symcon_dbl",
+                "tp_dbl_scatter", "tp_dbl_gather")
 
 
 @pytest.fixture(scope="module")

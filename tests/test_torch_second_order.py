@@ -203,14 +203,15 @@ def _int_ints(x):
                            "local", "base")]
 
 
-@pytest.mark.parametrize("chunk", [16, tp_ops.TWIN_CHUNK_EDGES])
+@pytest.mark.parametrize("route", ["blocked", "unblocked"])
 @pytest.mark.parametrize("name", sorted(INT_CASES))
-def test_blocked_bwd_op_second_order_matches_jax(name, chunk, monkeypatch):
-    """d/d(g, Y, h, R) of <c, (dY, dh, dR)> for the blocked backward op:
-    the JAX ``_blocked_bwd_op`` against ``_InteractionBwd``, with
-    the twin's edges taken whole and in chunks of 16."""
-    monkeypatch.setattr(tp_ops, "TWIN_CHUNK_EDGES", chunk)
-    jspec, tspec, x = _int_case(name, seed=len(name) + chunk)
+def test_blocked_bwd_op_second_order_matches_jax(name, route, monkeypatch):
+    """d/d(g, Y, h, R) of <c, (dY, dh, dR)> for the backward op: the JAX
+    ``_blocked_bwd_op`` against ``_InteractionBwd`` over the blocking (its
+    second order the plain versions of the second-order kernels) and
+    without it (the autograd twin, its edges in chunks of 16)."""
+    monkeypatch.setattr(tp_ops, "TWIN_CHUNK_EDGES", 16)
+    jspec, tspec, x = _int_case(name, seed=len(name) + len(route))
 
     def jscalar(g, Y, h, R):
         ints = [jnp.asarray(a) for a in _int_ints(x)]
@@ -221,9 +222,28 @@ def test_blocked_bwd_op_second_order_matches_jax(name, chunk, monkeypatch):
     ins = [_t(x[n], grad=True) for n in ("g", "Y", "h", "R")]
     ints = [_t(a) for a in _int_ints(x)]
     ints[5] = ints[5].to(torch.int32)
+    if route == "unblocked":
+        ints[3:] = [None] * 4
     outs = tp_ops._InteractionBwd.apply(*ins, *ints, tspec)
     scalar = sum((d * _t(x[c])).sum() for d, c in zip(outs, ("cY", "ch", "cR")))
     _close(torch.autograd.grad(scalar, ins), want, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("name", sorted(INT_CASES))
+def test_blocked_second_order_matches_the_twin(name):
+    """The plain versions of the second-order kernels (``_InteractionBwd``'s
+    blocked route on the CPU) against autograd's double VJP of
+    ``interaction_fused`` (``_twin_second_order``) on the same cotangents:
+    masked edges, a fully masked padding tile, atoms without edges and a hub
+    over three tiles."""
+    _, tspec, x = _int_case(name, seed=40 + len(name))
+    g, Y, h, R = (_t(x[n]) for n in ("g", "Y", "h", "R"))
+    cot = [_t(x[n]) for n in ("cY", "ch", "cR")]
+    s, r, m, perm, valid, local, base = (_t(a) for a in _int_ints(x))
+    got = tp_ops._blocked_second_order(tspec, g, Y, h, R, s, perm, valid,
+                                       local.to(torch.int32), base, *cot)
+    want = tp_ops._twin_second_order(tspec, g, Y, h, R, s, r, m, *cot)
+    _close(got, [w.numpy() for w in want], **TWIN_TOL)
 
 
 @pytest.mark.parametrize("name", sorted(INT_CASES))

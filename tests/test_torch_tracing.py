@@ -90,6 +90,9 @@ def test_trainer_under_the_profiler_records_each_step_with_its_children():
         assert {"model.tp_twin", "model.symcon_twin"} <= {k.name for k in inside}
         assert all(s.t0 <= k.t0 and k.t1 <= s.t1 for k in inside)
         assert s.counts["atoms"] > 0 and s.counts["edges"] > 0 and s.counts["graphs"] > 0
+        # the blocked tp twin counts its slots; the step's edges are its valid ones
+        tp_twins = [k for k in inside if k.name == "model.tp_twin"]
+        assert all(k.counts["slots"] >= s.counts["edges"] for k in tp_twins)
     # the counters are the telemetry's real atoms, from the same host arrays
     assert [s.counts["atoms"] for s in steps] == [x[0] for x in tr.telemetry.loads[1:]]
     # the wait span is the pipeline's own reading

@@ -386,8 +386,8 @@ PRECISION_TOL = {"fp32": 2e-4, "bf16": 5e-2, "fp8": 4e-1}
 VARIANT_STEPS = 3           # training steps of each variant's run
 # the interaction's fused backward (bwd_impl="fused": autograd through
 # interaction_fused) keeps every [E, k, nnz] intermediate of both layers for
-# the loss's second order, which the chunked twin of bwd_impl="cuda" does
-# not; its run is cut to this capacity, a third of TRAIN_ATOMS, and prints
+# the loss's second order, which the second-order kernels of bwd_impl="cuda"
+# do not; its run is cut to this capacity, a third of TRAIN_ATOMS, and prints
 # its peak memory
 FUSED_BWD_CAPACITY = 1024
 # no backward kernel, so none of its second order
@@ -1055,18 +1055,21 @@ def check_training_size(dev, blk):
 
 def _identity_calls(dev, rng, E, layer):
     """The interaction kernels as ``tp_cuda`` launches them, over ``E``
-    random edges of one layer: the identity blocking of
-    ``tp_ops._identity_operands`` (a tile per 128 edges, each edge its own
-    row, every slot valid), fp32."""
+    random edges of one layer: ``tp_ops.identity_blocking`` (a tile per 128
+    edges, each edge its own row, padding slots masked) and the blocked
+    op's slot gathers, fp32."""
     k, tp = CONFIG.channels, CONFIG.tp_spec_at(layer)
     d_sh, d_h, n_paths, d_out = tpk.spec_dims(tp)
 
     def randn(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
 
-    operands, tiles = tp_ops._identity_operands(
-        randn(E, d_sh), randn(E, k, d_h), randn(E, n_paths, k))
-    E_p = operands[0].shape[0]
+    blk = tp_ops.identity_blocking(E, dev)
+    _, *slots = tp_ops._slot_operands(randn(E, d_sh), randn(E, k, d_h), randn(E, n_paths, k),
+                                      torch.arange(E, device=dev), blk["perm"])
+    operands = (*slots, blk["local"], blk["valid"])
+    tiles = dict(n_tiles=blk["base"].shape[0], block_n=tp_ops.IDENTITY_TILE)
+    E_p = blk["perm"].shape[0]
     G_t = randn(E_p, d_out, k)
     n_ent = len(tpk.tp_entries(tp))
     slot_bytes = 4 * E_p * (d_sh + (d_h + n_paths) * k) + 5 * E_p

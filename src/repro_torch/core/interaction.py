@@ -6,9 +6,9 @@ Port of the JAX package's ``core/interaction.py``: the spec, and the two
 plain-torch formulations, registered as the ``ref`` and ``fused`` impls of
 the ``interaction`` kind: :func:`interaction_ref` (dense TP messages, then
 the receiver sum) and :func:`interaction_fused` (the sum taken in the nnz
-basis; its double VJP is the second-order rule of the interaction backward
-kernel, and its VJP the ``bwd_impl="fused"`` backward).  The ``cuda`` impls
-live in ``kernels/channelwise_tp/ops.py``.  Every registered impl shares
+basis; its double VJP is what the tests hold the interaction's second-order
+kernels to, and its VJP the ``bwd_impl="fused"`` backward).  The ``cuda``
+impls live in ``kernels/channelwise_tp/ops.py``.  Every registered impl shares
 one signature, bound to an :class:`InteractionSpec` by the registry:
 
     fn(Y, h_node, R, senders, receivers, edge_mask, *, blocking=None) -> A
@@ -53,7 +53,7 @@ class InteractionSpec:
     # operand precision of the cuda kernels (forward and backward): reduced
     # precisions round the loaded operands, every sum stays fp32
     # (kernels/precision.py).  ref and fused impls ignore it (always fp32);
-    # the second-order twins stay fp32 at every setting.
+    # the second order stays fp32 at every setting.
     precision: str = "fp32"
 
     def __post_init__(self):

@@ -16,14 +16,16 @@ forces  F = -dE/dr  via ``torch.autograd.grad``.  Serving takes them
 detached (:func:`mace_energy_forces`); training keeps their graph
 (:func:`energy_forces_graph`, ``create_graph=True``), so the forces term of
 :func:`weighted_loss` makes every step a grad-of-grad, whose second order
-runs through the symmetric contraction's second-order kernel and the
-interaction's plain twins (``kernels/*/ops.py``).
+runs on kernels on every route: the symmetric contraction's second-order
+kernel and the interaction's two (``kernels/*/ops.py``).
 
 Batch layout (static shapes; padding masked) is the JAX package's:
 species [N], positions [N, 3], node_mask [N], senders/receivers/edge_mask
 [E], graph_id [N], plus the ``blk_*`` edge blocking (``data.blocking``)
 that the ``cuda`` interaction impls read (without it they take the
-unblocked path).  Parameters are a nested dict of tensors with the JAX
+unblocked path: the TP-only kernels' messages, summed over receivers).
+:func:`interaction_consumes_blocking` says whether a config's interaction
+impl reads it.  Parameters are a nested dict of tensors with the JAX
 package's keys (``bridge.py`` converts both ways).
 
 Kernel selection is the JAX package's, under the port's names
@@ -54,7 +56,7 @@ import torch
 from repro_torch.bridge import flatten
 from repro_torch.data.blocking import blocking_from_batch
 from repro_torch.kernels.precision import check_precision
-from repro_torch.kernels.registry import resolve
+from repro_torch.kernels.registry import get_impl, resolve
 
 from .channelwise_tp import TPSpec
 from .interaction import InteractionSpec, resolve_interaction
@@ -160,6 +162,18 @@ class MaceConfig:
             self.tp_spec_at(layer), self.avg_num_neighbors,
             self.interaction_block_n, self.interaction_bwd_impl, self.precision,
         )
+
+
+def interaction_consumes_blocking(mace_cfg: MaceConfig) -> bool:
+    """True when the model's interaction impl reads pre-blocked edges: the
+    engines then ask collation for the ``blk_*`` arrays.  A name registered
+    only as a TP-only kernel (``core.interaction.resolve_interaction``'s
+    fallback) reads none."""
+    try:
+        impl = get_impl("interaction", mace_cfg.interaction_impl_name)
+    except KeyError:
+        return False
+    return impl.consumes_blocking
 
 
 # ---------------------------------------------------------------------------

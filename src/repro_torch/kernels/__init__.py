@@ -17,9 +17,8 @@ import torch
 
 
 def refuse_third_order(op: str) -> None:
-    """A kernel op's second-order rule (a kernel, or its twin's autodiff on
-    detached copies) builds no graph: refuse a backward that is asked to
-    build one (a third derivative)."""
+    """A kernel op's second-order rule (a kernel) builds no graph: refuse a
+    backward that is asked to build one (a third derivative)."""
     if torch.is_grad_enabled():
         raise RuntimeError(
             f"{op}: only first and second derivatives are implemented "

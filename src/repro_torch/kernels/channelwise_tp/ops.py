@@ -5,53 +5,35 @@ Batch contract: edge blocking is a data-pipeline product
 (``data.blocking.block_edges``); its arrays ride inside the batch under the
 ``blk_*`` keys and reach :func:`interaction_cuda_op` as ``blocking``.
 
-``interaction_cuda_op``
-    The registered ``interaction/cuda`` impl (and ``cuda_bf16`` /
-    ``cuda_fp8``).  With blocking it runs the fused TP+scatter kernel over
-    the pre-blocked edges.  Forward (plain torch around the kernel, as it is
-    XLA around the kernel in JAX): gather ``Y[perm]``, ``h[senders[perm]]``
-    and ``R[perm]`` into slot layout, run the TP+scatter kernel into
-    ``[T * block_n]`` tile rows, fold the virtual tiles onto atom rows with
-    ``index_add_`` at ``base + row`` (bases repeat for hub atoms; padding
-    tiles point at the trash rows ``n_atoms..n_atoms + block_n``, which are
-    sliced off), divide by ``avg_num_neighbors``.  Backward: the adjoint of
-    the fold is a gather of cotangent rows into tile layout (trash rows read
-    zeros), then the gather + TP-transpose kernel, then the adjoints of the
-    host-side gathers: an un-permuting ``index_add_`` over ``perm`` (masked
-    slots carry exact zeros, so padding slots only add zeros to edge 0) and
-    a segment-sum of ``dh`` over senders.
-    Without blocking (the JAX ``_unblocked_forward`` / ``_unblocked_bwd_op``)
-    it runs the same two kernels on the identity blocking of :func:`tp_cuda`
-    (one tile per 128 edges, each edge its own row) and sums over receivers
-    in plain torch: forward ``tp_cuda`` + ``aggregate_edge_messages``;
-    backward a receiver gather of the cotangent (masked, divided by the
-    average), the identity-blocked backward kernel, and an ``index_add_`` of
-    ``dh`` over senders.
+One autograd route, the blocked op (:class:`_Interaction`).  Forward (plain
+torch around the kernel, as it is XLA around the kernel in JAX): gather
+``Y[perm]``, ``h[senders[perm]]`` and ``R[perm]`` into slot layout, run the
+TP+scatter kernel into ``[T * block_n]`` tile rows, fold the virtual tiles
+onto atom rows with ``index_add_`` at ``base + row`` (bases repeat for hub
+atoms; padding tiles point at the trash rows ``n_atoms..n_atoms + block_n``,
+which are sliced off), divide by ``avg_num_neighbors``.  Backward
+(:class:`_InteractionBwd`, the JAX ``_blocked_bwd_op``): the adjoint of the
+fold is a gather of cotangent rows into tile layout (trash rows read zeros),
+then the gather + TP-transpose kernel, then the adjoints of the host-side
+gathers: an un-permuting ``index_add_`` over ``perm`` (masked slots carry
+exact zeros, so padding slots only add zeros to edge 0) and a segment-sum of
+``dh`` over senders.  The backward's own derivative is the second-order
+kernels ``tp_dbl_scatter`` and ``tp_dbl_gather`` (:func:`_blocked_second_order`;
+their plain versions on the CPU), which the JAX package leaves to XLA's
+autodiff.  A third order raises.
 
-``tp_cuda``
-    The registered ``channelwise_tp/cuda`` impl (the JAX ``tp_pallas``): a
-    TP-only drop-in for ``tp_fused``, both kernels under the identity
-    blocking.
+``tp_cuda`` (the registered ``channelwise_tp/cuda`` impl, the JAX
+``tp_pallas``) is the blocked op over :func:`identity_blocking` (a tile of
+128 slots per 128 edges, each edge its own row) with ``h_node = h_send``,
+``senders = arange(E)`` and an average of 1.  Without blocking,
+``interaction_cuda_op`` is ``tp_cuda`` followed by
+``aggregate_edge_messages``, and autograd composes its derivatives.
 
-The backward (``InteractionSpec.bwd_impl``, the JAX ``"pallas"`` /
-``"xla"``): ``"cuda"`` runs the backward kernel above; ``"fused"`` is the
-VJP of ``core.interaction.interaction_fused`` taken by autograd at
-aliases of the op's saved inputs (:func:`_fused_vjp`), so its graph reaches
-them and it differentiates to any order.
-
-Every op is a ``torch.autograd.Function`` that saves only its own inputs
-(with ``receivers`` and ``edge_mask``, which the blocking arrays encode but
-the unblocked second-order rule reads).  Each backward kernel is itself an
-``autograd.Function`` (:class:`_InteractionBwd`, the JAX package's
-``_blocked_bwd_op`` / ``_unblocked_bwd_op``; :class:`_TPBwd`, its
-``_tp_bwd_op``).  Over the blocking, the derivative of the backward is the
-second-order kernels ``tp_dbl_scatter`` and ``tp_dbl_gather``
-(:func:`_blocked_second_order`; their plain versions on the CPU), which the
-JAX package leaves to XLA's autodiff.  Without the blocking, and for the
-TP-only op, it is the double VJP of the plain twin (``interaction_fused``
-over the unblocked arrays, ``tp_fused``), taken in chunks of edges (exact:
-both are sums over edges) so that their ``[E, k, nnz]`` intermediates stay
-a fixed size.  A third order raises.
+``InteractionSpec.bwd_impl`` (the JAX ``"pallas"`` / ``"xla"``) is read in
+:func:`interaction_cuda_op` alone: ``"cuda"`` is the route above;
+``"fused"`` computes A by the same kernels and takes its backward as the VJP
+of ``core.interaction.interaction_fused`` by autograd (:class:`_FusedBwd`),
+differentiable to any order.
 
 Precision: ``tp_cuda`` takes ``precision``; the interaction ops read
 ``InteractionSpec.precision``.  Both route it to the kernels' operand
@@ -59,141 +41,28 @@ rounding (``kernels/precision.py``); the second order stays fp32.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import tracing
-from repro_torch.core.channelwise_tp import TPSpec, tp_fused
+from repro_torch.core.channelwise_tp import TPSpec
 from repro_torch.core.interaction import (
     InteractionSpec,
     aggregate_edge_messages,
     interaction_fused,
 )
 from repro_torch.kernels import refuse_third_order
-from repro_torch.kernels.precision import check_precision
 
 from .kernel import tp_dbl_gather, tp_dbl_scatter, tp_gather_bwd, tp_scatter
 
-# edges per chunk of the autograd twins (the unblocked and TP-only second
-# orders): their autodiff keeps about a dozen [chunk, k, nnz] fp32 tensors
-# live, 4.3 GB at k = 128 and nnz = 86 (the paper's layer 1), where the
-# 147,456 edges of a 3,072-atom bin at once would need 78 GB
-TWIN_CHUNK_EDGES = 8192
 # edge slots per tile of the identity blocking (the JAX tp_pallas block_e)
 IDENTITY_TILE = 128
 
 
 # ---------------------------------------------------------------------------
-# the TP-only op: both kernels under the identity blocking
-# ---------------------------------------------------------------------------
-
-
-def _identity_operands(Y, h_send, R):
-    """Y, h and R padded to whole tiles of ``IDENTITY_TILE`` edges (one at
-    least) in kernel layout, and the identity blocking: slot s of a tile is
-    row s of that tile, every slot valid (padding slots hold zeros and land
-    in rows that are sliced off)."""
-    E = Y.shape[0]
-    E_p = max(1, -(-E // IDENTITY_TILE)) * IDENTITY_TILE
-    pad = (0, 0, 0, 0, 0, E_p - E)
-    Y_b = F.pad(Y, (0, 0, 0, E_p - E)).contiguous()              # [E_p, d_sh]
-    h_b = F.pad(h_send.transpose(1, 2), pad).contiguous()       # [E_p, d_h, k]
-    R_b = F.pad(R, pad).contiguous()                            # [E_p, n_paths, k]
-    n_tiles = E_p // IDENTITY_TILE
-    local = torch.arange(IDENTITY_TILE, dtype=torch.int32, device=Y.device).repeat(n_tiles)
-    valid = torch.ones(E_p, dtype=torch.bool, device=Y.device)
-    return (Y_b, h_b, R_b, local, valid), dict(n_tiles=n_tiles, block_n=IDENTITY_TILE)
-
-
-def _tp_forward(Y, h_send, R, spec: TPSpec, precision: str):
-    """Messages [E, k, d_out] by the TP+scatter kernel, identity-blocked."""
-    operands, tiles = _identity_operands(Y, h_send, R)
-    A_t = tp_scatter(*operands, spec, **tiles, precision=precision)  # [E_p, d_out, k]
-    return A_t[: Y.shape[0]].transpose(1, 2)
-
-
-def _tp_backward(g, Y, h_send, R, spec: TPSpec, precision: str):
-    """(dY, dh_send, dR) from the message cotangent g [E, k, d_out] by the
-    gather + TP-transpose kernel, identity-blocked."""
-    operands, tiles = _identity_operands(Y, h_send, R)
-    E, E_p = Y.shape[0], operands[0].shape[0]
-    G_t = F.pad(g.transpose(1, 2), (0, 0, 0, 0, 0, E_p - E)).contiguous()
-    dY_b, dh_b, dR_b = tp_gather_bwd(G_t, *operands, spec, **tiles, precision=precision)
-    return dY_b[:E], dh_b[:E].transpose(1, 2), dR_b[:E]
-
-
-def _tp_twin_second_order(spec, g, Y, h_send, R, ddY, ddh, ddR):
-    """d/d(g, Y, h_send, R) of ``<(ddY, ddh, ddR), VJP of tp_fused at (Y,
-    h_send, R) with g>``, one chunk of edges at a time (every edge is its
-    own term)."""
-    outs = [torch.empty_like(t) for t in (g, Y, h_send, R)]
-    for lo in range(0, Y.shape[0], TWIN_CHUNK_EDGES):
-        sl = slice(lo, lo + TWIN_CHUNK_EDGES)
-        with torch.enable_grad():
-            ins = [t[sl].detach().requires_grad_(True) for t in (g, Y, h_send, R)]
-            first = torch.autograd.grad(tp_fused(*ins[1:], spec), ins[1:], ins[0],
-                                        create_graph=True)
-            parts = torch.autograd.grad(first, ins, (ddY[sl], ddh[sl], ddR[sl]),
-                                        allow_unused=True)
-        for out, part in zip(outs, parts):
-            out[sl] = 0.0 if part is None else part
-    return outs
-
-
-class _TPBwd(torch.autograd.Function):
-    """``(g [E, k, d_out], Y, h_send, R) -> (dY, dh_send, dR)``: the
-    identity-blocked backward kernel, whose own derivative is
-    :func:`_tp_twin_second_order`."""
-
-    @staticmethod
-    def forward(ctx, g, Y, h_send, R, spec, precision):
-        ctx.spec = spec
-        ctx.save_for_backward(g, Y, h_send, R)
-        return _tp_backward(g, Y, h_send, R, spec, precision)
-
-    @staticmethod
-    def backward(ctx, ddY, ddh, ddR):
-        refuse_third_order("tp backward")
-        with tracing.span("model.tp_twin", tracing.handed_off()):
-            grads = _tp_twin_second_order(ctx.spec, *ctx.saved_tensors, ddY, ddh, ddR)
-        return (*grads, None, None)
-
-
-class _TPOp(torch.autograd.Function):
-    """``(Y [E, d_sh], h_send [E, k, d_h], R [E, n_paths, k]) -> [E, k,
-    d_out]``."""
-
-    @staticmethod
-    def forward(ctx, Y, h_send, R, spec, precision):
-        ctx.spec, ctx.precision = spec, precision
-        ctx.save_for_backward(Y, h_send, R)
-        return _tp_forward(Y, h_send, R, spec, precision)
-
-    @staticmethod
-    def backward(ctx, g):
-        grads = _TPBwd.apply(g, *ctx.saved_tensors, ctx.spec, ctx.precision)
-        return (*grads, None, None)
-
-
-def tp_cuda(
-    Y: torch.Tensor,
-    h_send: torch.Tensor,
-    R: torch.Tensor,
-    spec: TPSpec,
-    *,
-    precision: str = "fp32",
-) -> torch.Tensor:
-    """Registered ``channelwise_tp/cuda`` impl (``cuda_bf16`` / ``cuda_fp8``
-    at a reduced ``precision``): a TP-only drop-in for ``tp_fused``, [E, k,
-    d_out], forward and backward by the interaction kernels under the
-    identity blocking."""
-    return _TPOp.apply(Y, h_send, R, spec, check_precision(precision))
-
-
-# ---------------------------------------------------------------------------
-# the interaction op, blocked and unblocked
+# the blocked op
 # ---------------------------------------------------------------------------
 
 
@@ -243,20 +112,6 @@ def _blocked_backward(spec, g, Y, h_node, R, senders, perm, valid, local, base):
     return dY, dh.transpose(1, 2), dR
 
 
-def _unblocked_forward(spec, Y, h_node, R, senders, receivers, edge_mask):
-    msgs = _tp_forward(Y, h_node[senders.long()], R, spec.tp, spec.precision)
-    return aggregate_edge_messages(msgs, receivers, edge_mask, h_node.shape[0], spec)
-
-
-def _unblocked_backward(spec, g, Y, h_node, R, senders, receivers, edge_mask):
-    gmsg = (g[receivers.long()] * edge_mask.to(g.dtype)[:, None, None]
-            / spec.avg_num_neighbors)                        # [E, k, d_out]
-    dY, dh_e, dR = _tp_backward(gmsg, Y, h_node[senders.long()], R, spec.tp,
-                                spec.precision)
-    dh = torch.zeros_like(h_node).index_add_(0, senders.long(), dh_e)
-    return dY, dh, dR
-
-
 def _blocked_second_order(spec, g, Y, h_node, R, senders, perm, valid, local, base,
                           ddY, ddh, ddR):
     """d/d(g, Y, h_node, R) of ``<(ddY, ddh, ddR), _blocked_backward at (g, Y,
@@ -282,34 +137,6 @@ def _blocked_second_order(spec, g, Y, h_node, R, senders, perm, valid, local, ba
     return dg[:n_atoms].transpose(1, 2) / avg, dY, dh.transpose(1, 2), dR
 
 
-def _twin_second_order(spec, g, Y, h_node, R, senders, receivers, edge_mask,
-                       ddY, ddh, ddR):
-    """d/d(g, Y, h_node, R) of ``<(ddY, ddh, ddR), VJP of interaction_fused
-    at (Y, h_node, R) with g>``, one chunk of edges at a time: the chunk's
-    share of the op is ``interaction_fused`` over its edges, whose VJP gives
-    that chunk's rows of dY and dR and its part of dh."""
-    E = Y.shape[0]
-    dg, dh = torch.zeros_like(g), torch.zeros_like(h_node)
-    dY, dR = torch.empty_like(Y), torch.empty_like(R)
-    for lo in range(0, E, TWIN_CHUNK_EDGES):
-        sl = slice(lo, min(lo + TWIN_CHUNK_EDGES, E))
-        with torch.enable_grad():
-            gg, y, h, r = (t.detach().requires_grad_(True)
-                           for t in (g, Y[sl], h_node, R[sl]))
-            A = interaction_fused(y, h, r, senders[sl], receivers[sl],
-                                  edge_mask[sl], spec=spec)
-            first = torch.autograd.grad(A, (y, h, r), gg, create_graph=True)
-            parts = torch.autograd.grad(first, (gg, y, h, r),
-                                        (ddY[sl], ddh, ddR[sl]), allow_unused=True)
-        pg, py, ph, pr = (torch.zeros_like(t) if p is None else p
-                          for p, t in zip(parts, (gg, y, h, r)))
-        dg += pg
-        dh += ph
-        dY[sl] = py
-        dR[sl] = pr
-    return dg, dY, dh, dR
-
-
 def _fused_vjp(spec, g, Y, h_node, R, senders, receivers, edge_mask):
     """``bwd_impl="fused"``: the VJP of ``interaction_fused`` by autograd,
     with a graph when the caller builds one, so that a second derivative
@@ -328,64 +155,104 @@ def _fused_vjp(spec, g, Y, h_node, R, senders, receivers, edge_mask):
 
 
 class _InteractionBwd(torch.autograd.Function):
-    """``(g [N, k, d_out], Y, h_node, R, senders, receivers, edge_mask,
-    perm, valid, local, base) -> (dY, dh_node, dR)``: the backward kernel
-    between the adjoints of the forward's plain-torch steps, over the edge
-    blocking when ``perm`` is given, else unblocked.  Its own derivative is
-    :func:`_blocked_second_order` (the second-order kernels) over the
-    blocking, :func:`_twin_second_order` without it."""
+    """``(g [N, k, d_out], Y, h_node, R, senders, perm, valid, local, base)
+    -> (dY, dh_node, dR)``: the backward kernel between the adjoints of the
+    forward's plain-torch steps, over the edge blocking.  Its own
+    derivative is :func:`_blocked_second_order` (the second-order
+    kernels)."""
 
     @staticmethod
-    def forward(ctx, g, Y, h_node, R, senders, receivers, edge_mask, perm, valid,
-                local, base, spec):
+    def forward(ctx, g, Y, h_node, R, senders, perm, valid, local, base, spec):
         ctx.spec = spec
-        ctx.save_for_backward(g, Y, h_node, R, senders, receivers, edge_mask, perm,
-                              valid, local, base)
-        if perm is None:
-            return _unblocked_backward(spec, g, Y, h_node, R, senders, receivers,
-                                       edge_mask)
+        ctx.save_for_backward(g, Y, h_node, R, senders, perm, valid, local, base)
         return _blocked_backward(spec, g, Y, h_node, R, senders, perm, valid, local, base)
 
     @staticmethod
     def backward(ctx, ddY, ddh, ddR):
         refuse_third_order("interaction backward")
-        g, Y, h_node, R, senders, receivers, edge_mask, perm, valid, local, base = (
-            ctx.saved_tensors)
+        g, Y, h_node, R, senders, perm, valid, local, base = ctx.saved_tensors
         with tracing.span("model.tp_twin", tracing.handed_off()) as sp:
-            if perm is None:
-                grads = _twin_second_order(ctx.spec, g, Y, h_node, R, senders, receivers,
-                                           edge_mask, ddY, ddh, ddR)
-            else:
-                if sp is not None:
-                    sp.count("slots", perm.shape[0])
-                grads = _blocked_second_order(ctx.spec, g, Y, h_node, R, senders, perm,
-                                              valid, local, base, ddY, ddh, ddR)
-        return (*grads, None, None, None, None, None, None, None, None)
+            if sp is not None:
+                sp.count("slots", perm.shape[0])
+            grads = _blocked_second_order(ctx.spec, g, Y, h_node, R, senders, perm,
+                                          valid, local, base, ddY, ddh, ddR)
+        return (*grads, None, None, None, None, None, None)
 
 
 class _Interaction(torch.autograd.Function):
     """``(Y [E, d_sh], h_node [N, k, d_h], R [E, n_paths, k]) -> A [N, k,
-    d_out]``, over pre-blocked edges when ``perm`` is given; the backward
-    as ``spec.bwd_impl`` says."""
+    d_out]`` over pre-blocked edges, its backward :class:`_InteractionBwd`."""
 
     @staticmethod
-    def forward(ctx, Y, h_node, R, senders, receivers, edge_mask, perm, valid,
-                local, base, spec):
+    def forward(ctx, Y, h_node, R, senders, perm, valid, local, base, spec):
         ctx.spec = spec
-        ctx.save_for_backward(Y, h_node, R, senders, receivers, edge_mask,
-                              perm, valid, local, base)
-        if perm is None:
-            return _unblocked_forward(spec, Y, h_node, R, senders, receivers, edge_mask)
+        ctx.save_for_backward(Y, h_node, R, senders, perm, valid, local, base)
         return _blocked_forward(spec, Y, h_node, R, senders, perm, valid, local, base)
 
     @staticmethod
     def backward(ctx, g):
-        saved = ctx.saved_tensors
-        if ctx.spec.bwd_impl == "fused":
-            dY, dh, dR = _fused_vjp(ctx.spec, g, *saved[:6])
-        else:
-            dY, dh, dR = _InteractionBwd.apply(g.contiguous(), *saved, ctx.spec)
-        return (dY, dh, dR) + (None,) * 8
+        dY, dh, dR = _InteractionBwd.apply(g.contiguous(), *ctx.saved_tensors, ctx.spec)
+        return (dY, dh, dR) + (None,) * 6
+
+
+def _blocked_op(Y, h_node, R, *, senders, blocking, spec):
+    perm, base = blocking["perm"], blocking["base"]
+    if perm.shape[0] % base.shape[0]:
+        raise ValueError("blocking perm length not a multiple of tile count")
+    return _Interaction.apply(Y, h_node, R, senders, perm, blocking["valid"],
+                              blocking["local"].to(torch.int32).contiguous(), base, spec)
+
+
+class _FusedBwd(torch.autograd.Function):
+    """``bwd_impl="fused"``: A by ``route``'s kernels (its forward runs
+    without a graph), its backward :func:`_fused_vjp`."""
+
+    @staticmethod
+    def forward(ctx, Y, h_node, R, senders, receivers, edge_mask, spec, route):
+        ctx.spec = spec
+        ctx.save_for_backward(Y, h_node, R, senders, receivers, edge_mask)
+        return route(Y, h_node, R)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_fused_vjp(ctx.spec, g, *ctx.saved_tensors), None, None, None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# the registered impls
+# ---------------------------------------------------------------------------
+
+
+def identity_blocking(n_edges: int, device) -> Dict[str, torch.Tensor]:
+    """The blocking under which the blocked op is the TP-only op: tiles of
+    ``IDENTITY_TILE`` slots (one at least), slot s reads edge s into its own
+    row (``local`` = s mod 128, ``base`` = tile x 128), padding slots read
+    edge 0 and are masked; the dtypes of ``data.blocking.blocking_to_batch``."""
+    n_tiles = max(1, -(-n_edges // IDENTITY_TILE))
+    slots = torch.arange(n_tiles * IDENTITY_TILE, dtype=torch.int32, device=device)
+    valid = slots < n_edges
+    return {"perm": torch.where(valid, slots, 0), "valid": valid,
+            "local": slots % IDENTITY_TILE, "base": slots[::IDENTITY_TILE].contiguous()}
+
+
+def tp_cuda(
+    Y: torch.Tensor,
+    h_send: torch.Tensor,
+    R: torch.Tensor,
+    spec: TPSpec,
+    *,
+    precision: str = "fp32",
+) -> torch.Tensor:
+    """Registered ``channelwise_tp/cuda`` impl (``cuda_bf16`` / ``cuda_fp8``
+    at a reduced ``precision``): a TP-only drop-in for ``tp_fused``, [E, k,
+    d_out], the blocked op over the identity blocking."""
+    E = Y.shape[0]
+    if E == 0:  # the identity blocking's padding slots read edge 0
+        one = [torch.cat([t, t.new_zeros((1,) + t.shape[1:])]) for t in (Y, h_send, R)]
+        return tp_cuda(*one, spec, precision=precision)[:0]
+    ispec = InteractionSpec(spec, 1.0, block_n=IDENTITY_TILE, precision=precision)
+    return _blocked_op(Y, h_send, R, senders=torch.arange(E, device=Y.device),
+                       blocking=identity_blocking(E, Y.device), spec=ispec)
 
 
 def interaction_cuda_op(
@@ -402,15 +269,16 @@ def interaction_cuda_op(
     """Registered ``interaction/cuda`` impl: A [N, k, d_out] (already /avg).
 
     With ``blocking`` the kernels read the blocking arrays, which encode
-    ``receivers`` and ``edge_mask``; the op keeps both for its second-order
-    rule.  Without it the op takes the unblocked path."""
+    ``receivers`` and ``edge_mask``; without it the messages come from
+    :func:`tp_cuda` and are summed over receivers in plain torch."""
     if blocking is None:
-        return _Interaction.apply(Y, h_node, R, senders, receivers, edge_mask,
-                                  None, None, None, None, spec)
-    perm, base = blocking["perm"], blocking["base"]
-    if perm.shape[0] % base.shape[0]:
-        raise ValueError("blocking perm length not a multiple of tile count")
-    return _Interaction.apply(
-        Y, h_node, R, senders, receivers, edge_mask, perm, blocking["valid"],
-        blocking["local"].to(torch.int32).contiguous(), base, spec,
-    )
+        def route(Y, h_node, R):
+            # index_select, whose autodiff is an index_add_ over senders
+            msgs = tp_cuda(Y, h_node.index_select(0, senders.long()), R, spec.tp,
+                           precision=spec.precision)
+            return aggregate_edge_messages(msgs, receivers, edge_mask, h_node.shape[0], spec)
+    else:
+        route = functools.partial(_blocked_op, senders=senders, blocking=blocking, spec=spec)
+    if spec.bwd_impl == "fused":
+        return _FusedBwd.apply(Y, h_node, R, senders, receivers, edge_mask, spec, route)
+    return route(Y, h_node, R)

@@ -46,11 +46,10 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.bridge import params_to, resolve_device
-from repro_torch.core.mace import MaceConfig, mace_energy_forces
+from repro_torch.core.mace import MaceConfig, interaction_consumes_blocking, mace_energy_forces
 from repro_torch.data.collate import BinShape, collate_bin
 from repro_torch.data.molecules import Molecule
 from repro_torch.kernels import autotune, cuda_lib
-from repro_torch.train.engine import interaction_consumes_blocking
 
 from .buckets import bucket_key
 

@@ -75,9 +75,9 @@ import torch.distributed as dist
 
 from repro_torch import tracing
 from repro_torch.bridge import flatten, unflatten
-from repro_torch.core.mace import MaceConfig, weighted_loss
+from repro_torch.core.mace import MaceConfig, interaction_consumes_blocking, weighted_loss
 from repro_torch.data.collate import BinShape, collate_bin
-from repro_torch.kernels import autotune, registry
+from repro_torch.kernels import autotune
 from repro_torch.launch.mesh import make_dp_group, make_node_device_groups
 
 from .compression import all_reduce_, compressed_allreduce_ef
@@ -346,18 +346,6 @@ def _zeros_ef(params, lead: int, compress: bool):
         return ()
     return tree_map(lambda p: torch.zeros((lead,) + tuple(p.shape), dtype=torch.float32,
                                           device=p.device), params)
-
-
-def interaction_consumes_blocking(mace_cfg: MaceConfig) -> bool:
-    """True when the model's interaction impl reads pre-blocked edges: the
-    engines then ask collation for the ``blk_*`` arrays.  A name registered
-    only as a TP-only kernel (``core.interaction.resolve_interaction``'s
-    fallback) reads none."""
-    try:
-        impl = registry.get_impl("interaction", mace_cfg.interaction_impl_name)
-    except KeyError:
-        return False
-    return impl.consumes_blocking
 
 
 class _Engine:

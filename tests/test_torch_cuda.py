@@ -471,20 +471,14 @@ TRAIN_CONFIGS = {"mace_cfm": (CONFIG, 48), "mace_mp0_medium": (MP0_MEDIUM, 64),
 
 
 @pytest.mark.parametrize("name", sorted(TRAIN_CONFIGS))
-def test_training_step_at_3072_atoms_runs_the_second_order_kernels(dev, name,
-                                                                   monkeypatch):
+def test_training_step_at_3072_atoms_runs_the_second_order_kernels(dev, name):
     """A training step of each benchmark configuration on a bin of 3,072
-    atoms: every blocked interaction backward's derivative goes through the
-    second-order kernels (a scatter and the spec's gather launches per
-    layer), never through the autograd twin."""
+    atoms: every interaction backward's derivative goes through the
+    second-order kernels, a scatter and the spec's gather launches per
+    layer."""
     from repro_torch.data.molecules import SyntheticCFMDataset
-    from repro_torch.kernels.channelwise_tp import ops as tp_ops
     from repro_torch.train.train_loop import Trainer, TrainerConfig
 
-    def refuse(*args, **kwargs):
-        raise AssertionError("the blocked path took the autograd twin")
-
-    monkeypatch.setattr(tp_ops, "_twin_second_order", refuse)
     cfg, edge_factor = TRAIN_CONFIGS[name]
     tcfg = TrainerConfig(capacity=3072, edge_factor=edge_factor, max_graphs=384)
     data = SyntheticCFMDataset(2000, seed=0, r_cutoff=cfg.r_max, max_atoms=256)
@@ -619,10 +613,10 @@ def test_interaction_paths_grad_of_grad_match_the_cpu(dev, blocked, bwd_impl):
     got = second_order(dev)
     torch.cuda.synchronize()
     assert tpk.TP_GATHER_BWD.launches - before[0] == (1 if bwd_impl == "cuda" else 0)
-    # only the blocked backward kernel's derivative is the second-order
-    # kernels; the unblocked one's and the fused backward's are autograd's
-    assert tpk.TP_DBL_SCATTER.launches - before[1] == (
-        1 if blocked and bwd_impl == "cuda" else 0)
+    # the backward kernel's derivative is the second-order kernels on both
+    # paths (the unblocked one over the identity blocking); the fused
+    # backward's is autograd's
+    assert tpk.TP_DBL_SCATTER.launches - before[1] == (1 if bwd_impl == "cuda" else 0)
     _grad_close(got, second_order(cpu))
 
 

@@ -275,9 +275,23 @@ def test_tp_precision_parity(precision):
     _within_tol_and_live(port(f"cuda_{precision}"), port("ref"), precision)
 
 
+def test_tp_cuda_on_no_edges():
+    """``tp_cuda`` on 0 edges: an empty [0, k, d_out], and empty first and
+    second derivatives of the inputs' shapes."""
+    _, spec = _specs()
+    Y, h, R, g, c = _tp_case(4, E=0)
+    ins = [_t(a, grad=True) for a in (Y, h, R)]
+    out = tp_cuda(*ins, spec.tp)
+    assert out.shape == g.shape == (0, 4, spec.tp.out_spec.dim)
+    first = torch.autograd.grad((out * _t(g)).sum(), ins, create_graph=True)
+    second = torch.autograd.grad(sum((f * _t(ci)).sum() for f, ci in zip(first, c)), ins)
+    assert [t.shape for t in (*first, *second)] == [t.shape for t in ins] * 2
+
+
 def test_tp_cuda_grad_of_grad_matches_jax():
     """The gradient with respect to (Y, h, R) of <c, d<msgs, g>/d(Y, h, R)>:
-    the JAX ``_tp_bwd_op`` rule against :class:`_TPBwd`'s twin."""
+    the JAX ``_tp_bwd_op`` rule against the second-order kernels' plain
+    versions under the identity blocking."""
     jspec, spec = _specs()
     Y, h, R, g, c = _tp_case(3, E=150)
 

@@ -31,7 +31,7 @@ from repro.core.mace import weighted_loss as jloss
 from repro.core.symmetric_contraction import SymConSpec as JSpec
 from repro.data.collate import BinShape as JBinShape
 from repro.data.collate import collate_bin as jcollate
-from repro.kernels.channelwise_tp.ops import _blocked_bwd_op, interaction_pallas_op
+from repro.kernels.channelwise_tp.ops import _blocked_bwd_op, _tp_bwd_op, interaction_pallas_op
 from repro.kernels.symmetric_contraction.ops import _symcon_bwd_op, symcon_pallas
 from repro.train.checkpoint import _flatten
 from repro_torch.bridge import flatten, params_from_jax
@@ -203,27 +203,42 @@ def _int_ints(x):
                            "local", "base")]
 
 
+def _blocked_ints(x):
+    """``_InteractionBwd``'s integer operands: senders and the blocking."""
+    s, perm, valid, local, base = (_t(x[n]) for n in ("senders", "perm", "valid", "local",
+                                                      "base"))
+    return [s, perm, valid, local.to(torch.int32), base]
+
+
 @pytest.mark.parametrize("route", ["blocked", "unblocked"])
 @pytest.mark.parametrize("name", sorted(INT_CASES))
-def test_blocked_bwd_op_second_order_matches_jax(name, route, monkeypatch):
-    """d/d(g, Y, h, R) of <c, (dY, dh, dR)> for the backward op: the JAX
-    ``_blocked_bwd_op`` against ``_InteractionBwd`` over the blocking (its
-    second order the plain versions of the second-order kernels) and
-    without it (the autograd twin, its edges in chunks of 16)."""
-    monkeypatch.setattr(tp_ops, "TWIN_CHUNK_EDGES", 16)
+def test_blocked_bwd_op_second_order_matches_jax(name, route):
+    """d/d(g, Y, h, R) of <c, (dY, dh, dR)> for the backward op, its second
+    order the plain versions of the second-order kernels: over the case's
+    blocking against the JAX ``_blocked_bwd_op``, and over the identity
+    blocking (``tp_cuda``'s, per-edge g and h) against the JAX ``_tp_bwd_op``."""
     jspec, tspec, x = _int_case(name, seed=len(name) + len(route))
+    if route == "unblocked":
+        s, r = x["senders"], x["receivers"]
+        x = dict(x, g=x["g"][r], h=x["h"][s], ch=x["ch"][s])
+        ints = [torch.arange(len(s)), *tp_ops.identity_blocking(len(s), "cpu").values()]
+        tspec = TISpec(tspec.tp, 1.0, block_n=tp_ops.IDENTITY_TILE)
+
+        def jbwd(g, Y, h, R):
+            return _tp_bwd_op(jspec.tp, tp_ops.IDENTITY_TILE, True, "fp32", g, Y, h, R)
+    else:
+        ints = _blocked_ints(x)
+
+        def jbwd(g, Y, h, R):
+            return _blocked_bwd_op(jspec, True, g, Y, h, R,
+                                   *(jnp.asarray(a) for a in _int_ints(x)))
 
     def jscalar(g, Y, h, R):
-        ints = [jnp.asarray(a) for a in _int_ints(x)]
-        dY, dh, dR = _blocked_bwd_op(jspec, True, g, Y, h, R, *ints)
+        dY, dh, dR = jbwd(g, Y, h, R)
         return sum(jnp.sum(d * x[c]) for d, c in ((dY, "cY"), (dh, "ch"), (dR, "cR")))
 
     want = jax.grad(jscalar, argnums=(0, 1, 2, 3))(x["g"], x["Y"], x["h"], x["R"])
     ins = [_t(x[n], grad=True) for n in ("g", "Y", "h", "R")]
-    ints = [_t(a) for a in _int_ints(x)]
-    ints[5] = ints[5].to(torch.int32)
-    if route == "unblocked":
-        ints[3:] = [None] * 4
     outs = tp_ops._InteractionBwd.apply(*ins, *ints, tspec)
     scalar = sum((d * _t(x[c])).sum() for d, c in zip(outs, ("cY", "ch", "cR")))
     _close(torch.autograd.grad(scalar, ins), want, **GRAD_TOL)
@@ -232,17 +247,19 @@ def test_blocked_bwd_op_second_order_matches_jax(name, route, monkeypatch):
 @pytest.mark.parametrize("name", sorted(INT_CASES))
 def test_blocked_second_order_matches_the_twin(name):
     """The plain versions of the second-order kernels (``_InteractionBwd``'s
-    blocked route on the CPU) against autograd's double VJP of
-    ``interaction_fused`` (``_twin_second_order``) on the same cotangents:
-    masked edges, a fully masked padding tile, atoms without edges and a hub
-    over three tiles."""
+    second order on the CPU) against autograd's double VJP of
+    ``interaction_fused`` on the same cotangents, in one pass: masked edges,
+    a fully masked padding tile, atoms without edges and a hub over three
+    tiles."""
     _, tspec, x = _int_case(name, seed=40 + len(name))
-    g, Y, h, R = (_t(x[n]) for n in ("g", "Y", "h", "R"))
+    g, Y, h, R = (_t(x[n], grad=True) for n in ("g", "Y", "h", "R"))
     cot = [_t(x[n]) for n in ("cY", "ch", "cR")]
     s, r, m, perm, valid, local, base = (_t(a) for a in _int_ints(x))
     got = tp_ops._blocked_second_order(tspec, g, Y, h, R, s, perm, valid,
                                        local.to(torch.int32), base, *cot)
-    want = tp_ops._twin_second_order(tspec, g, Y, h, R, s, r, m, *cot)
+    first = torch.autograd.grad(interaction_fused(Y, h, R, s, r, m, spec=tspec), (Y, h, R),
+                                g, create_graph=True)
+    want = torch.autograd.grad(first, (g, Y, h, R), cot)
     _close(got, [w.numpy() for w in want], **TWIN_TOL)
 
 
@@ -295,9 +312,7 @@ def test_interaction_twins_match_jax():
 def test_interaction_refuses_a_third_order():
     _, tspec, x = _int_case("random", seed=9)
     ins = [_t(x[n], grad=True) for n in ("g", "Y", "h", "R")]
-    ints = [_t(a) for a in _int_ints(x)]
-    ints[5] = ints[5].to(torch.int32)
-    dY, _, _ = tp_ops._InteractionBwd.apply(*ins, *ints, tspec)
+    dY, _, _ = tp_ops._InteractionBwd.apply(*ins, *_blocked_ints(x), tspec)
     with pytest.raises(RuntimeError, match="second derivatives"):
         torch.autograd.grad(dY.square().sum(), ins, create_graph=True)
 
